@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the PyTorch port, each checked in a
 fresh interpreter: importing every module of ``tossctr_tpu_torch`` pulls
-in neither JAX, flax, msgpack, PyYAML nor the JAX package; no source of
+in neither JAX, flax, msgpack, PyYAML, sklearn, pyarrow, polars nor the
+JAX package (the card's machine has none of them); no source of
 the port (or ``chip_smoke.py``) imports them; and an entry point called
 without ``device`` on a machine without CUDA raises instead of running
 on the CPU.  One test item (see ``_torch_helpers``)."""
@@ -16,7 +17,7 @@ from _torch_helpers import Checks
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "tossctr_tpu_torch"
-FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "tossctr_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "sklearn", "pyarrow", "polars", "tossctr_tpu")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:

@@ -91,8 +91,8 @@ def test_kernel_modules_match_pallas():
 
     def wrappers_check_their_inputs():
         x, w, b, bias = (torch.from_numpy(a) for a in attn_inputs(0))
-        with pytest.raises(NotImplementedError):
-            fused_mha_qkv(x, w, b, bias, 2, dropout_p=0.1)
+        with pytest.raises(ValueError):
+            fused_mha_qkv(x, w, b, bias, 2, dropout_p=1.0)
         with pytest.raises(ValueError):
             fused_mha_qkv(x, w, b.double(), bias, 2)
         with pytest.raises(ValueError):
@@ -102,8 +102,8 @@ def test_kernel_modules_match_pallas():
         with pytest.raises(TypeError):
             fused_mha_qkv(x.half(), w.half(), b, bias.half(), 2)
         args = [torch.from_numpy(a) for a in tail_inputs(0)]
-        with pytest.raises(NotImplementedError):
-            fused_block_tail(*args, dropout_p=0.1)
+        with pytest.raises(ValueError):
+            fused_block_tail(*args, dropout_p=-0.1)
         bad = list(args)
         bad[3] = bad[3].to(torch.bfloat16)  # bout must stay fp32
         with pytest.raises(ValueError):

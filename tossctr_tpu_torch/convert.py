@@ -12,8 +12,13 @@ for ``/``:
 Layouts are kept too: a flax ``Dense.kernel`` is (in, out) and the port's
 ``Dense`` multiplies by it as stored.  A bfloat16 leaf (an ``ml_dtypes``
 array, or the msgpack reader's tensor) becomes ``torch.bfloat16``.
-Imports neither flax nor the JAX package: leaves are numpy arrays or
-torch tensors.
+
+``load_flax_train_state`` carries a whole JAX sparse-table ``TrainState``
+across (parameters, AdamW moments, EMA shadow, step and the table's
+AdaGrad accumulator), so a test can start both packages' train steps
+from one state.  Imports neither flax, optax nor the JAX package: leaves
+are numpy arrays or torch tensors, and the optimizer and EMA states are
+read by their field names.
 """
 
 from __future__ import annotations
@@ -68,3 +73,29 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk("", tree)
     return out
+
+
+@torch.no_grad()
+def load_flax_train_state(state, jax_state) -> None:
+    """Copy a JAX ``TrainState`` (sparse-table mode, leaves fetched to the
+    host) into the port's ``train.trainer.TrainState`` in place."""
+    model = state.model
+    model.load_state_dict(flax_to_state_dict(jax_state.params), strict=True)
+    params = dict(model.named_parameters())
+    adam = next(s for s in jax_state.opt_state if hasattr(s, "mu"))
+    mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
+    for p in (q for group in state.opt.param_groups for q in group["params"]):
+        name = next(n for n, q in params.items() if q is p)
+        state.opt.state[p] = {
+            "step": torch.tensor(float(np.asarray(adam.count))),
+            "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
+        }
+    if state.ema is not None:
+        shadow = flax_to_state_dict(jax_state.ema.shadow)
+        for n, s in state.ema.shadow.items():
+            s.copy_(shadow[n])
+        state.ema.num_updates = int(np.asarray(jax_state.ema.num_updates))
+    state.step = int(np.asarray(jax_state.step))
+    for n, t in state.table_opt.items():
+        t.accum.copy_(to_tensor(jax_state.table_opt[n].accum))

@@ -9,11 +9,13 @@
 // What it computes, per row n of x, o: (N, D), with F hidden units:
 //   a  = round_T(o @ Wout + bout)          r1 = round_T(x + a)
 //   y1 = round_T(wn1 * (r1 * rsqrt(mean(r1^2) + 1e-6)))
-//   g  = round_T(gelu_tanh(y1 @ W1 + b1))  (h and gelu in fp32)
+//   g  = round_T(gelu_tanh(y1 @ W1 + b1) * keep)   (h, gelu, product fp32)
 //   ff = round_T(g @ W2 + b2)              r2 = round_T(y1 + ff)
 //   y  = round_T(wn2 * (r2 * rsqrt(mean(r2^2) + 1e-6)))
 // with every product summed in fp32 -- the rounding points of the Pallas
-// kernel.  No dropout: this is the serving (deterministic) forward.
+// kernel.  keep is the counter-hash dropout mask of (row n, hidden column,
+// seed) scaled by 1/(1-p) (common.cuh Dropout); without dropout it is 1
+// and is not computed.
 //
 // What bounds it on the card: at the flagship shapes (N = 8192*64 rows,
 // D=64, F=384) one call reads x and o (134 MB) and writes y (67 MB),
@@ -34,7 +36,9 @@
 namespace {
 
 using tossctr::align4;
+using tossctr::Dropout;
 using tossctr::from_f;
+using tossctr::gelu_tanh;
 using tossctr::load4;
 using tossctr::round_t;
 using tossctr::to_f;
@@ -44,8 +48,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;   // rows per block
 constexpr int kChunk = 64;  // hidden columns per chunk
 constexpr float kEps = 1e-6f;
-constexpr float kSqrt2OverPi = 0.7978845608028654f;
-constexpr float kGeluC = 0.044715f;
 
 struct Layout {
   int AS, GS;
@@ -69,13 +71,6 @@ struct Layout {
   }
 };
 
-__device__ __forceinline__ float gelu_tanh(float h) {
-  // u = c0 * (h + c1*h*h*h); 0.5*h*(1 + tanh(u)), in the reference's order
-  const float h3 = __fmul_rn(__fmul_rn(__fmul_rn(kGeluC, h), h), h);
-  const float u = __fmul_rn(kSqrt2OverPi, __fadd_rn(h, h3));
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, tanhf(u)));
-}
-
 // in-place RMSNorm of the tile's rows: buf[r] = round_T(w * (buf[r] * inv_rms))
 template <typename T>
 __device__ __forceinline__ void rms_rows(float* buf, const float* w, int D, int AS) {
@@ -97,7 +92,7 @@ block_tail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
                       const float* __restrict__ wn1, const T* __restrict__ w1,
                       const float* __restrict__ b1, const T* __restrict__ w2,
                       const float* __restrict__ b2, const float* __restrict__ wn2,
-                      T* __restrict__ y, int N, int D, int F) {
+                      T* __restrict__ y, int N, int D, int F, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(D, F);
   const int AS = L.AS, GS = L.GS;
@@ -179,7 +174,7 @@ block_tail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
       wb[i] = f < fc ? to_f<T>(w2[(size_t)(f0 + f) * D + (i - f * D)]) : 0.f;
     }
     __syncthreads();
-    // g = round_T(gelu(y1 @ W1[:, chunk] + b1[chunk]))
+    // g = round_T(gelu(y1 @ W1[:, chunk] + b1[chunk]) * keep)
     const int HT = kChunk / 4;
     for (int t = tid; t < (kRows / 4) * HT; t += kThreads) {
       const int r0 = (t / HT) * 4, c0 = (t % HT) * 4;
@@ -199,8 +194,15 @@ block_tail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
         const int c = c0 + j;
         const float bj = c < fc ? b1_s[f0 + c] : 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          g_s[(r0 + i) * GS + c] = c < fc ? round_t<T>(gelu_tanh(__fadd_rn(acc[i][j], bj))) : 0.f;
+        for (int i = 0; i < 4; ++i) {
+          float g = 0.f;
+          if (c < fc) {
+            g = gelu_tanh(__fadd_rn(acc[i][j], bj));
+            if (drop.on()) g = __fmul_rn(g, drop.ffn(row0 + r0 + i, f0 + c));
+            g = round_t<T>(g);
+          }
+          g_s[(r0 + i) * GS + c] = g;
+        }
       }
     }
     __syncthreads();
@@ -244,7 +246,7 @@ block_tail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
 template <typename T>
 int launch(const void* x, const void* o, const void* wout, const void* bout, const void* wn1,
            const void* w1, const void* b1, const void* w2, const void* b2, const void* wn2,
-           void* y, int N, int D, int F, int device, void* stream) {
+           void* y, int N, int D, int F, Dropout drop, int device, void* stream) {
   const Layout L(D, F);
   const size_t smem = (size_t)L.total * sizeof(float);
   auto kern = block_tail_fwd_kernel<T>;
@@ -257,7 +259,7 @@ int launch(const void* x, const void* o, const void* wout, const void* bout, con
       static_cast<const float*>(bout), static_cast<const float*>(wn1),
       static_cast<const T*>(w1), static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<const float*>(wn2), static_cast<T*>(y), N, D,
-      F);
+      F, drop);
   return (int)cudaGetLastError();
 }
 
@@ -266,20 +268,25 @@ int launch(const void* x, const void* o, const void* wout, const void* bout, con
 // dtype: 0 = float32, 1 = bfloat16 (x, o, wout, w1, w2 and y share it;
 // biases and norm weights are float32).  D must be a multiple of 4 with
 // (64/4)*(D/4) <= 256 output tiles, i.e. D <= 64; F a multiple of 4.
+// Dropout: keep_thresh (0 = off), keep_scale, seed (common.cuh Dropout).
 // Returns a cudaError_t code, 0 on success.
 extern "C" int tossctr_fused_block_tail_fwd(const void* x, const void* o, const void* wout,
                                             const void* bout, const void* wn1, const void* w1,
                                             const void* b1, const void* w2, const void* b2,
                                             const void* wn2, void* y, int N, int D, int F,
-                                            int dtype, int device, void* stream) {
+                                            unsigned keep_thresh, float keep_scale,
+                                            unsigned seed, int dtype, int device,
+                                            void* stream) {
   if (N < 0 || D < 4 || D % 4 != 0 || (kRows / 4) * (D / 4) > kThreads || F < 4 || F % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
+  const Dropout drop(keep_thresh, keep_scale, seed);
   if (dtype == 0)
-    return launch<float>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, device, stream);
+    return launch<float>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device,
+                         stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, device,
-                                 stream);
+    return launch<__nv_bfloat16>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop,
+                                 device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,10 +9,11 @@
 // dh = D / H):
 //   q, k, v = round_T(x[b] @ Wqkv + bqkv)             (fp32 sums)
 //   s_h     = (q_h k_h^T) * scale + bias               (fp32, bias (K, K))
-//   p_h     = round_T(softmax(s_h))                    (fp32 softmax)
+//   p_h     = round_T(softmax(s_h) * keep_h)           (fp32 softmax and product)
 //   out[b]  = round_T(concat_h(p_h @ v_h))             (fp32 sums)
-// which are the rounding points of the Pallas kernel.  No dropout: this
-// is the serving (deterministic) forward.
+// which are the rounding points of the Pallas kernel.  keep_h is the
+// counter-hash dropout mask of (b, query, key, h, seed) scaled by 1/(1-p)
+// (common.cuh Dropout); without dropout it is 1 and is not computed.
 //
 // What bounds it on the card: at the flagship shapes (B=8192, K=64,
 // D=64, H=8) one call reads 67 MB and writes 67 MB (~40 us at 3.35 TB/s)
@@ -35,6 +36,7 @@
 namespace {
 
 using tossctr::align4;
+using tossctr::Dropout;
 using tossctr::from_f;
 using tossctr::load4;
 using tossctr::round_t;
@@ -67,7 +69,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mha_qkv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
                    const float* __restrict__ bqkv, const T* __restrict__ bias,
-                   T* __restrict__ out, int B, int K, int D, int H, float scale) {
+                   T* __restrict__ out, int B, int K, int D, int H, float scale,
+                   Dropout drop) {
   extern __shared__ __align__(16) float smem[];
   const Layout L(K, D, (int)sizeof(T));
   const int D3 = 3 * D;
@@ -167,7 +170,8 @@ mha_qkv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
       }
       __syncthreads();
 
-      // ---- fp32 softmax per query row (one warp a row), p rounded to T ----
+      // ---- fp32 softmax per query row (one warp a row), times the keep
+      // mask in fp32, then rounded to T ----
       for (int qi = warp; qi < K; qi += kWarps) {
         float* sr = s_s + qi * KS;
         float m = __int_as_float(0xff800000);  // -inf
@@ -180,7 +184,12 @@ mha_qkv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
           sum += e;
         }
         sum = tossctr::warp_sum(sum);
-        for (int j = lane; j < K; j += 32) sr[j] = round_t<T>(__fdiv_rn(sr[j], sum));
+        if (drop.on()) {
+          for (int j = lane; j < K; j += 32)
+            sr[j] = round_t<T>(__fmul_rn(__fdiv_rn(sr[j], sum), drop.attn(row, qi, j, h)));
+        } else {
+          for (int j = lane; j < K; j += 32) sr[j] = round_t<T>(__fdiv_rn(sr[j], sum));
+        }
       }
       __syncthreads();
 
@@ -206,7 +215,7 @@ mha_qkv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
 
 template <typename T>
 int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias, void* out,
-           int B, int K, int D, int H, float scale, int device, void* stream) {
+           int B, int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
   const Layout L(K, D, (int)sizeof(T));
   const size_t smem = (size_t)L.total * sizeof(float);
   auto kern = mha_qkv_fwd_kernel<T>;
@@ -215,24 +224,29 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias, 
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-      static_cast<const T*>(bias), static_cast<T*>(out), B, K, D, H, scale);
+      static_cast<const T*>(bias), static_cast<T*>(out), B, K, D, H, scale, drop);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, wqkv, bias and out share it;
-// bqkv is float32).  Returns a cudaError_t code, 0 on success.
+// bqkv is float32).  Dropout: keep_thresh (0 = off), keep_scale, seed
+// (common.cuh Dropout).  Returns a cudaError_t code, 0 on success.
 extern "C" int tossctr_fused_mha_qkv_fwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* bias, void* out, int B, int K, int D,
-                                         int H, float scale, int dtype, int device,
+                                         int H, float scale, unsigned keep_thresh,
+                                         float keep_scale, unsigned seed, int dtype, int device,
                                          void* stream) {
   if (B < 0 || K < 1 || D < 4 || H < 1 || D % H != 0 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  if (dtype == 0) return launch<float>(x, wqkv, bqkv, bias, out, B, K, D, H, scale, device, stream);
+  const Dropout drop(keep_thresh, keep_scale, seed);
+  if (dtype == 0)
+    return launch<float>(x, wqkv, bqkv, bias, out, B, K, D, H, scale, drop, device, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wqkv, bqkv, bias, out, B, K, D, H, scale, device, stream);
+    return launch<__nv_bfloat16>(x, wqkv, bqkv, bias, out, B, K, D, H, scale, drop, device,
+                                 stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,8 @@
 Port of ``tossctr_tpu/data/dataset.py`` for the serving path: the same
 ``manifest.json`` format (written by ``tossctr_tpu/data/etl.py`` or by
 this package's ``data/synth.py``), the same ``dims`` and the same
-inference ``gather`` (features and ids; labels come with the training
-slice), with NumPy gathers only (the native threaded gather of the JAX
+``gather`` (features with labels for training, with ids for serving),
+with NumPy gathers only (the native threaded gather of the JAX
 package waits for a later slice).
 """
 
@@ -67,8 +67,9 @@ class ShardCache:
             "seq_len": int(m0["seq"]["shape"][1]),
         }
 
-    def gather(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
-        """Features and ids of rows ``idx`` (the JAX ``gather(train=False)``)."""
+    def gather(self, idx: np.ndarray, train: bool = True) -> Dict[str, np.ndarray]:
+        """Features of rows ``idx``, with the labels ``y`` (fp32) when
+        ``train``, else with the ids."""
         idx = np.asarray(idx, dtype=np.int64)
         sid = np.searchsorted(self.ends, idx, side="right")
         n = idx.shape[0]
@@ -78,9 +79,12 @@ class ShardCache:
             "X_mask": np.empty((n, d["X_mask"]), np.float32),
             "X_cat": np.empty((n, d["X_cat"]), np.int32),
             "seq": np.empty((n, d["seq_len"]), np.int32),
-            "ids": np.empty((n,), dtype="U64"),
         }
-        keys = ["X_num", "X_mask", "X_cat", "seq"]
+        if train:
+            batch["y"] = np.empty((n,), np.float32)
+        else:
+            batch["ids"] = np.empty((n,), dtype="U64")
+        keys = ["X_num", "X_mask", "X_cat", "seq"] + (["y"] if train else [])
         for s in np.unique(sid):
             sel = sid == s
             li = idx[sel] - self.starts[s]
@@ -95,6 +99,8 @@ class ShardCache:
             batch["X_mask"][sel] = raw["X_mask"].astype(np.float32)[inv]
             batch["X_cat"][sel] = raw["X_cat"][inv]
             batch["seq"][sel] = raw["seq"][inv]
-            if "ids" in arrs:
+            if train:
+                batch["y"][sel] = raw["y"].astype(np.float32)[inv]
+            elif "ids" in arrs:
                 batch["ids"][sel] = arrs["ids"][li_sorted][inv]
         return batch

@@ -8,13 +8,20 @@ aux_logit)`` in fp32.  ``build_model`` (the counterpart of
 ``tossctr_tpu/train/trainer.py`` ``build_model``) and the seeded
 ``init_params`` live here too, since serving needs them without a
 trainer.
+
+``CTRModel.forward(batch, rng=None, taps=None)``: without ``rng`` the
+pass is deterministic (serving, evaluation); with a ``layers.DropoutRNG``
+it trains, with every dropout of the config (``model.embedding_dropout``
+on the QNN's categorical stack, the encoder kernels' ``mha_dropout`` and
+``ffn_dropout``, ``model.dare_dropout`` on ``u_seq``, the QNN's dropouts,
+0.1 in the fallback MLP head).  ``taps``: see ``dare.DARE``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +29,7 @@ from torch import nn
 
 from .dare import DARE
 from .feature_embed import BinaryFeatureEmbedding, NumericFeatureEmbedding
-from .layers import Dense
+from .layers import Dense, DropoutRNG
 from .qnn_alpha import QNNAlpha
 
 
@@ -69,6 +76,10 @@ class ModelSpec:
     tfm_gating: str
     tfm_add_pos_bias: bool
     qnn_enabled: bool
+    tfm_mha_dropout: float = 0.0
+    tfm_ffn_dropout: float = 0.0
+    dare_dropout: float = 0.0
+    embedding_dropout: float = 0.0
     pad_topk: bool = True
     table_dtype: str = "float32"
     qnn: Dict[str, Any] = field(default_factory=dict)
@@ -128,6 +139,10 @@ def build_model_spec(cfg, dims: Dict[str, int]) -> ModelSpec:
         tfm_gating=s.tfm.gating,
         tfm_add_pos_bias=bool(s.tfm.add_positional_bias),
         qnn_enabled=bool(qa.enabled),
+        tfm_mha_dropout=float(s.tfm.mha_dropout),
+        tfm_ffn_dropout=float(s.tfm.ffn_dropout),
+        dare_dropout=float(cfg.model.dare_dropout),
+        embedding_dropout=float(cfg.model.embedding_dropout),
         pad_topk=bool(s.pad_topk_to_tile),
         table_dtype=str(cfg.model.table_dtype),
         qnn=dict(
@@ -135,6 +150,8 @@ def build_model_spec(cfg, dims: Dict[str, int]) -> ModelSpec:
             rank=int(qa.rank),
             proj_dim=int(qa.proj_dim),
             mlp_hidden=tuple(qa.mlp_hidden),
+            dropout=float(qa.dropout),
+            use_residual=bool(qa.use_residual),
             use_se=bool(qa.use_se),
             se_reduction=int(qa.se_reduction),
             pair_grouping=qa.pair_grouping,
@@ -196,6 +213,8 @@ class CTRModel(nn.Module):
             n_heads=sp.tfm_n_heads, ffn_hidden=sp.tfm_ffn_hidden,
             gating=sp.tfm_gating, add_positional_bias=sp.tfm_add_pos_bias,
             table_dtype=torch.bfloat16 if sp.table_dtype == "bfloat16" else torch.float32,
+            dropout=sp.dare_dropout, mha_dropout=sp.tfm_mha_dropout,
+            ffn_dropout=sp.tfm_ffn_dropout,
         )
         if sp.qnn_enabled:
             self.qnn = QNNAlpha(sp.n_feat, D, se_batch_stats=se_batch_stats,
@@ -205,7 +224,8 @@ class CTRModel(nn.Module):
             self.fc_0 = Dense(feats, 512)
             self.fc_1 = Dense(512, 1)
 
-    def forward(self, batch: Dict[str, torch.Tensor]):
+    def forward(self, batch: Dict[str, torch.Tensor], rng: Optional[DropoutRNG] = None,
+                taps: Optional[dict] = None):
         sp, dt = self.spec, self.dtype
         X_num = batch["X_num"].to(dt)
         X_mask = batch["X_mask"].to(dt)
@@ -226,16 +246,21 @@ class CTRModel(nn.Module):
             else:  # concat = 0.5 * (S1 + S2)
                 query = 0.5 * (cat_e[:, sp.cat_cols.index(sp.query_key), :] + s2)
 
-        u_seq, aux_logit = self.dare(batch["seq"], query, dt)
+        u_seq, aux_logit = self.dare(batch["seq"], query, dt, rng=rng, taps=taps)
 
         if sp.qnn_enabled:
-            feats = [u_seq[:, None, :]] + [e for e in (num_e, mask_e, cat_e) if e is not None]
-            logits = self.qnn(torch.cat(feats, dim=1), dt)
+            # the categorical stack is dropped after the query used it
+            cat_stack = (rng.dropout(cat_e, sp.embedding_dropout)
+                         if rng is not None and cat_e is not None else cat_e)
+            feats = [u_seq[:, None, :]] + [e for e in (num_e, mask_e, cat_stack) if e is not None]
+            logits = self.qnn(torch.cat(feats, dim=1), dt, rng=rng)
         else:
             feats = [u_seq] + [e.mean(dim=1) for e in (num_e, mask_e) if e is not None]
             if cat_e is not None:
                 feats += list(cat_e.unbind(dim=1))
             h = torch.relu(self.fc_0(torch.cat(feats, dim=1), dt))
+            if rng is not None:
+                h = rng.dropout(h, 0.1)
             logits = self.fc_1(h, dt)[:, 0]
         logits = logits.float()
         return logits, torch.sigmoid(logits), aux_logit.float()
@@ -254,9 +279,11 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     """CTRModel for ``cfg`` and the cache ``dims``, with uninitialised
-    parameters allocated on ``device``.  ``model.use_pallas_attention`` /
-    ``use_pallas_ffn`` None or true select the kernel path, the only one
-    ported; a config that asks for an unported path raises."""
+    parameters allocated on ``device``: the dense parameters trainable,
+    the sequence table without grad (the trainer updates its rows).
+    ``model.use_pallas_attention`` / ``use_pallas_ffn`` None or true
+    select the kernel path, the only one ported; a config that asks for an
+    unported path raises."""
     m, s = cfg.model, cfg.sequence
     unported = {
         "model.use_pallas_attention: false (the unfused encoder)": m.use_pallas_attention is False,
@@ -271,9 +298,8 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     if asked:
         raise NotImplementedError(f"not ported to tossctr_tpu_torch yet: {', '.join(asked)}")
     with torch.device(resolve_device(device)):
-        model = CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
-                         se_batch_stats=bool(m.qnn_alpha.se_batch_stats))
-    return model.requires_grad_(False)
+        return CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
+                        se_batch_stats=bool(m.qnn_alpha.se_batch_stats))
 
 
 @torch.no_grad()

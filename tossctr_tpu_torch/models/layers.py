@@ -9,9 +9,13 @@ compute dtype where the flax module does.
 
 The encoder layer runs its fused RMSNorm path only: ``fused_mha_qkv``
 then ``fused_block_tail`` (layers.py:288-312), the hand-written kernels
-on a CUDA tensor.  The unfused and LayerNorm paths wait for a later
-slice (``models/ctr_model.build_model`` refuses configs that ask for
-them).
+on a CUDA tensor, differentiable through their backward kernels.  The
+unfused and LayerNorm paths wait for a later slice
+(``models/ctr_model.build_model`` refuses configs that ask for them).
+
+A forward pass trains when it is given a ``DropoutRNG`` (the JAX
+package's ``deterministic=False`` with a ``dropout`` rng stream) and is
+deterministic without one.
 """
 
 from __future__ import annotations
@@ -23,6 +27,41 @@ from torch import nn
 
 from ..ops.fused_attention import fused_mha_qkv
 from ..ops.fused_ffn import fused_block_tail, rms_norm
+
+
+class DropoutRNG:
+    """The randomness of one training forward pass.
+
+    ``seed()`` draws the int32 seed of one kernel call's counter-hash
+    dropout (``layers.dropout_seed``) from a CPU generator, so no draw
+    waits on the card.  ``dropout(x, p)`` is flax ``nn.Dropout``:
+    ``where(keep, x / (1 - p), 0)`` with ``keep`` drawn by ``bernoulli_``
+    from a generator on x's device.  Both generators are seeded with
+    ``seed``, which the trainer derives from (train seed, step)."""
+
+    def __init__(self, seed: int, device):
+        device = torch.device(device)
+        self.host = torch.Generator().manual_seed(int(seed))
+        self.device = (self.host if device.type == "cpu"
+                       else torch.Generator(device=device).manual_seed(int(seed)))
+
+    def seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+
+    def dropout(self, x, p: float):
+        if p <= 0.0:
+            return x
+        keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - p, generator=self.device)
+        return torch.where(keep.bool(), x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                                   device=x.device))
+
+
+def kernel_dropout(rng: Optional[DropoutRNG], p: float):
+    """-> (effective p, seed) of one kernel call (``layers.dropout_seed``):
+    a seed is drawn only when the pass trains and p > 0."""
+    if rng is None or p <= 0.0:
+        return 0.0, 0
+    return float(p), rng.seed()
 
 
 class Dense(nn.Module):
@@ -85,11 +124,14 @@ class DAREEncoderLayer(nn.Module):
     head-averaged positional bias as one (K, K) additive mask."""
 
     def __init__(self, d_model: int, n_heads: int, ffn_hidden: int, *,
+                 mha_dropout: float = 0.0, ffn_dropout: float = 0.0,
                  add_pos_bias: bool = True, max_len: int = 512):
         super().__init__()
         if d_model % n_heads:
             raise ValueError("d_model must divide by n_heads")
         self.n_heads = n_heads
+        self.mha_dropout = float(mha_dropout)
+        self.ffn_dropout = float(ffn_dropout)
         self.pbias = PositionalBias(max_len, n_heads) if add_pos_bias else None
         self.mha = FusedMHAParams(d_model)
         self.norm1 = RMSNorm(d_model)
@@ -114,20 +156,21 @@ class DAREEncoderLayer(nn.Module):
             return torch.zeros(K, K, dtype=dtype, device=device)
         return bias2d.expand(K, K).contiguous()
 
-    def forward(self, x, valid_k: Optional[int] = None):
+    def forward(self, x, valid_k: Optional[int] = None, rng: Optional[DropoutRNG] = None):
         B, K, D = x.shape
         dt = x.dtype
         x = x.contiguous()
         bias = self.attention_bias(K, valid_k, dt, x.device)
         o = fused_mha_qkv(
             x, self.mha.qkv.kernel.to(dt).contiguous(), self.mha.qkv.bias, bias,
-            self.n_heads,
+            self.n_heads, *kernel_dropout(rng, self.mha_dropout),
         )
         y = fused_block_tail(
             x.reshape(B * K, D), o.reshape(B * K, D),
             self.mha.out.kernel.to(dt).contiguous(), self.mha.out.bias, self.norm1.w,
             self.Dense_0.kernel.to(dt).contiguous(), self.Dense_0.bias,
             self.Dense_1.kernel.to(dt).contiguous(), self.Dense_1.bias, self.norm2.w,
+            *kernel_dropout(rng, self.ffn_dropout),
         )
         return y.reshape(B, K, D)
 

@@ -3,7 +3,8 @@
 Port of ``tossctr_tpu/models/qnn_alpha.py``: over the (B, F, D) token
 stack, RMSNorm over the flattened F*D features (the flax auto-named
 ``RMSNorm_0``), multi-head low-rank FM crosses, squeeze-excite with the
-batch-mean quirk, then an MLP over [flattened base | interactions].
+batch-mean quirk, then an MLP over [flattened base | interactions], with
+dropout on the interactions and after each hidden layer when training.
 """
 
 from __future__ import annotations
@@ -14,17 +15,20 @@ import torch
 from torch import nn
 
 from ..ops.fm_cross import fm_cross_blocked, fm_cross_multihead
-from .layers import Dense, RMSNorm, SEBlock
+from .layers import Dense, DropoutRNG, RMSNorm, SEBlock
 
 
 class QNNAlpha(nn.Module):
     def __init__(self, in_feat: int, emb_dim: int, *, heads: int = 8, rank: int = 32,
                  proj_dim: int = 256, mlp_hidden: Sequence[int] = (512, 256),
-                 use_se: bool = True, se_reduction: int = 8, se_batch_stats: bool = True,
+                 dropout: float = 0.1, use_se: bool = True, se_reduction: int = 8,
+                 se_batch_stats: bool = True, use_residual: bool = True,
                  pair_grouping: str = "all", block_slices: Optional[Dict[str, Tuple[int, int]]] = None):
         super().__init__()
         self.in_feat, self.emb_dim = in_feat, emb_dim
         self.pair_grouping = pair_grouping
+        self.dropout = float(dropout)
+        self.use_residual = use_residual
         self.block_slices = dict(block_slices or {})
         self.RMSNorm_0 = RMSNorm(in_feat * emb_dim)
         self.U = nn.Parameter(torch.empty(heads, emb_dim, rank))
@@ -36,7 +40,7 @@ class QNNAlpha(nn.Module):
             self.add_module(f"mlp_{i}", Dense(dims[i], dims[i + 1]))
         self.mlp_out = Dense(dims[-1], 1)
 
-    def forward(self, feats, dtype):  # (B, F, D) -> (B,)
+    def forward(self, feats, dtype, rng: Optional[DropoutRNG] = None):  # (B, F, D) -> (B,)
         B, F, D = feats.shape
         if (F, D) != (self.in_feat, self.emb_dim):
             raise ValueError(f"QNNAlpha expects (B, {self.in_feat}, {self.emb_dim}), got {tuple(feats.shape)}")
@@ -48,7 +52,14 @@ class QNNAlpha(nn.Module):
             inter = fm_cross_multihead(z, U, V)
         if self.se is not None:
             inter = self.se(inter)
-        out = torch.cat([z.reshape(B, F * D), inter], dim=1)
+        if rng is not None:
+            inter = rng.dropout(inter, self.dropout)
+        base = z.reshape(B, F * D)
+        if not self.use_residual:  # the base features pass no gradient back
+            base = base.detach()
+        out = torch.cat([base, inter], dim=1)
         for i in range(self.n_mlp):
             out = torch.relu(getattr(self, f"mlp_{i}")(out, dtype))
+            if rng is not None:
+                out = rng.dropout(out, self.dropout)
         return self.mlp_out(out, dtype)[:, 0]

@@ -1,14 +1,27 @@
 """Ops of the port: dense top-k selection and the FM cross in plain
-PyTorch, and the two hand-written CUDA kernels of the encoder layer
-(``fused_mha_qkv``, ``fused_block_tail``) with their plain versions.
-Importing this package builds nothing; the kernels build at first use."""
+PyTorch, the counter-hash dropout masks, and the hand-written CUDA
+kernels of the encoder layer (``fused_mha_qkv``, ``fused_block_tail``
+and their backwards) with their plain versions.  Importing this package
+builds nothing; the kernels build at first use."""
 
+from .dropout import dropout_keep_reference, ffn_keep_reference
 from .fm_cross import fm_cross_blocked, fm_cross_multihead
-from .fused_attention import fused_mha_qkv, fused_mha_qkv_reference
-from .fused_ffn import fused_block_tail, fused_block_tail_reference
+from .fused_attention import (
+    fused_mha_qkv,
+    fused_mha_qkv_bwd,
+    fused_mha_qkv_bwd_reference,
+    fused_mha_qkv_reference,
+)
+from .fused_ffn import (
+    fused_block_tail,
+    fused_block_tail_bwd,
+    fused_block_tail_bwd_reference,
+    fused_block_tail_reference,
+)
 from .topk_select import dare_select_ids, log_decay_at, recency_log_decay
 
-KERNEL_WRAPPERS = (fused_mha_qkv, fused_block_tail)
+# every wrapper that launches a kernel and counts its launches
+KERNEL_WRAPPERS = (fused_mha_qkv, fused_block_tail, fused_mha_qkv_bwd, fused_block_tail_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -16,14 +29,27 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
 __all__ = [
+    "KERNEL_WRAPPERS",
     "dare_select_ids",
+    "dropout_keep_reference",
+    "ffn_keep_reference",
     "fm_cross_blocked",
     "fm_cross_multihead",
     "fused_block_tail",
+    "fused_block_tail_bwd",
+    "fused_block_tail_bwd_reference",
     "fused_block_tail_reference",
     "fused_mha_qkv",
+    "fused_mha_qkv_bwd",
+    "fused_mha_qkv_bwd_reference",
     "fused_mha_qkv_reference",
+    "launch_counts",
     "log_decay_at",
     "recency_log_decay",
     "reset_launch_counts",

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("fused_mha_qkv", "fused_block_tail")
+KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,18 +33,21 @@ NVCC_FLAGS = [
 # the C entry points' dtype argument: the storage type T of the kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry point of each library: pointers and the stream as c_void_p
-# (ctypes would otherwise pass them as 32-bit ints), sizes as c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# dropout arguments of every entry point: keep threshold, keep scale, seed
+_DROP = [_U, _F, _U]
+# each library's C entry point and its argument types: pointers and the
+# stream as c_void_p (ctypes would otherwise pass them as 32-bit ints),
+# sizes as c_int; each returns a cudaError_t code
 SIGNATURES = {
-    "fused_mha_qkv": (
-        "tossctr_fused_mha_qkv_fwd",
-        [_P] * 5 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
-    ),
-    "fused_block_tail": (
-        "tossctr_fused_block_tail_fwd",
-        [_P] * 11 + [_I] * 3 + [_I, _I, _P],
-    ),
+    "fused_mha_qkv": ("tossctr_fused_mha_qkv_fwd",
+                      [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _P]),
+    "fused_block_tail": ("tossctr_fused_block_tail_fwd",
+                         [_P] * 11 + [_I] * 3 + _DROP + [_I, _I, _P]),
+    "fused_mha_qkv_bwd": ("tossctr_fused_mha_qkv_bwd",
+                          [_P] * 8 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
+    "fused_block_tail_bwd": ("tossctr_fused_block_tail_bwd",
+                             [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -115,6 +118,16 @@ def load_library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def persistent_blocks(t: torch.Tensor) -> int:
+    """The grid of a persistent kernel on ``t``'s device: one block an SM."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
