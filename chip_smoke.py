@@ -5,12 +5,13 @@
 1. Prints the card's name and power limit; fails without a CUDA card.
 2. Builds the hand-written kernels from ``tossctr_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
-3. Kernel phase, at the flagship shapes in bf16: the two forward kernels
-   with dropout off (serving) and on (training, p = 0.1), the two backward
-   kernels with dropout on, each against its plain PyTorch version (error
-   and tolerance), its time from CUDA events beside the plain version's, a
-   PyTorch yardstick where PyTorch computes the same function, and the
-   least time the card could take.
+3. Kernel phase, at the flagship shapes in bf16: the two encoder forward
+   kernels with dropout off (serving) and on (training, p = 0.1), the two
+   encoder backward kernels with dropout on, and the FM-cross pair at the
+   QNN-alpha head's shapes (also in fp32), each against its plain PyTorch
+   version (error and tolerance), its time from CUDA events beside the
+   plain version's, a PyTorch yardstick where PyTorch computes the same
+   function, and the least time the card could take.
 4. Serving phase: a synthetic flagship test cache (3.5 batches of 8192
    rows), two full-width fold checkpoints (10M-row bf16 sequence table)
    from a seeded init with temperature calibrators, then ``infer_main``
@@ -21,17 +22,26 @@
 5. Training phase: a synthetic flagship train cache of 8 batches of 8192
    rows and ``make_train_step`` at full width (every dropout on) over the
    rotating batches, as ``bench.py`` drives the JAX step.  Checks finite
-   losses, 3 launches per step of each of the four kernels, and that one
-   step changes only table rows the batch selected (never the pad row);
-   reports ms/step, examples/s, peak memory, the device's busy share and a
-   profile of one step.  Then one step from one state on a 512-row batch
-   (kernel dropouts on, the other dropouts off), in bf16 and in fp32, on
-   the card against the CPU plain path and against the card with the
-   kernels' plain versions: the selections, the loss, every dense
-   gradient, the AdaGrad accumulator and the table's update agree within
-   the bands of ``CHECK_BANDS`` (see ``train_reference_check`` for the
-   rows each comparison holds and the gaps reported beside).
-6. Prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+   losses, 3 launches per step of each of the four encoder kernels, and
+   that one step changes only table rows the batch selected (never the
+   pad row); reports ms/step, examples/s, peak memory, the device's busy
+   share and a profile of one step.  Then one step from one state on a
+   512-row batch (kernel dropouts on, the other dropouts off), in bf16
+   and in fp32, on the card against the CPU plain path and against the
+   card with the kernels' plain versions: the selections, the loss, every
+   dense gradient, the AdaGrad accumulator and the table's update agree
+   within the bands of ``CHECK_BANDS`` (see ``train_reference_check`` for
+   the rows each comparison holds and the gaps reported beside).  The
+   serving and training phases run the QNN head's plain FM path.
+6. Fold phase: the K-fold entry point at full width with the FM-cross
+   kernels (``model.extra.use_pallas_fm``): ``train_main`` over a
+   synthetic train cache of FOLD_ROWS rows, cut to one fold of five and
+   FOLD_EPOCHS epochs (the cuts are printed), then the training CLI again
+   (it must skip the finished fold) and ``infer_main`` on the fold's
+   checkpoint.  Checks the train log, the checkpoint, the submission and
+   every kernel's launches; reports wall time, ms/step and the FM
+   kernels' share of the device time.
+7. Prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line.  Scratch files live in a
 temporary directory under ``build/`` that is removed at exit.
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import os
 import subprocess
@@ -51,6 +62,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 N_ROWS = 8192 * 3 + 4096  # 3.5 batches: the last one is partial
@@ -59,9 +71,12 @@ N_FOLDS = 2
 P_DROP = 0.1  # the flagship's mha_dropout and ffn_dropout
 DROP_SEED = 1234567
 WGRAD_BAND = 1e-2  # bf16 weight gradients: relative to the largest magnitude
+FP32_BAND = 1e-5  # fp32 outputs: relative to the largest magnitude
 TRAIN_BATCHES = 8  # distinct batches rotating through the timed steps
 TRAIN_STEPS = 8  # timed steps
 CHECK_ROWS = 512  # the card-vs-CPU one-step check
+FOLD_ROWS = 40960  # the fold phase's synthetic train rows: 5 folds of 8192
+FOLD_EPOCHS = 2
 # the one-step check, by compute dtype.  The table is stored in fp32, so
 # that one step's row update is visible (at the flagship lr a first
 # AdaGrad step moves a N(0, 1) bf16 row by under half an ulp: in bf16
@@ -301,14 +316,106 @@ def kernel_phase(cfg, dev):
             lambda: fused_block_tail_bwd_reference(*targs, dy, P_DROP, DROP_SEED)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    del targs, dy, got, want
+    results.update(fm_kernel_rows(cfg, dev, g))
     for r in results.values():
         extra = (f", dropout off {r['ms_no_dropout']:.4f} ms (plain {r['plain_ms_no_dropout']:.4f})"
                  if "ms_no_dropout" in r else "")
+        if "multihead_ms" in r:
+            extra = f", the plain einsum path (fm_cross_multihead) {r['multihead_ms']:.4f} ms"
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"yardstick {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms{extra}")
     return results
+
+
+def fm_kernel_rows(cfg, dev, g):
+    """The FM-cross pair at the flagship's QNN shapes: z (B, F, D) with F =
+    1 + 2 x N_NUM + the categorical columns tokens of width D = emb_dim,
+    against the plain versions in bf16 (timed) and fp32."""
+    import torch
+
+    from tossctr_tpu_torch.ops import (
+        fm_cross_multihead,
+        fm_cross_pallas,
+        fm_cross_pallas_bwd,
+        fm_cross_pallas_bwd_reference,
+        fm_cross_pallas_reference,
+    )
+    from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd
+
+    qa = cfg.model.qnn_alpha
+    B, D = cfg.train.batch_size, cfg.model.emb_dim
+    F = 1 + 2 * N_NUM + len(cfg.data.cat_cols)
+    H, R, P = qa.heads, qa.rank, qa.proj_dim
+    out, errs = {}, {}
+
+    def inputs(dtype):
+        z = torch.randn(B, F, D, generator=g, device=dev)
+        U = torch.randn(H, D, R, generator=g, device=dev) * 0.02  # the init's scale
+        V = torch.randn(H, R, P, generator=g, device=dev) * 0.02
+        gr = torch.randn(B, H * P, generator=g, device=dev)
+        return [t.to(dtype) for t in (z, U, V, gr)]
+
+    for dtype in (torch.float32, torch.bfloat16):
+        z, U, V, gr = inputs(dtype)
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        got = fm_cross_pallas_fwd(z, U, V)
+        dgot = fm_cross_pallas_bwd(z, U, V, gr)
+        torch.cuda.synchronize()
+        want = fm_cross_pallas_reference(z, U, V)
+        dwant = fm_cross_pallas_bwd_reference(z, U, V, gr)
+        pairs = [("out", got, want, True), ("dz", dgot[0], dwant[0], True),
+                 ("dU", dgot[1], dwant[1], False), ("dV", dgot[2], dwant[2], False)]
+        for name, a, b, act in pairs:
+            top = float(b.float().abs().max())
+            band = (FP32_BAND * max(top, 1.0) if dtype == torch.float32
+                    else bf16_tolerance(b) if act else WGRAD_BAND * top)
+            errs[(tag, name)] = check_close(f"fm_cross {tag} {name}", a, b, band)
+            log(f"[kernel] fm_cross {tag} {name} B={B} F={F} D={D} H={H} R={R} P={P}: "
+                f"max_abs_err={errs[(tag, name)]:.6g} (band {band:.6g}); {spread(a, b)}")
+        del got, dgot, want, dwant
+    # z, U, V, gr are the bf16 inputs: time those
+    zb = 2
+    flops_a = 2 * B * F * D * H * R
+    fwd_bytes = zb * (z.numel() + U.numel() + V.numel() + B * H * P)
+    b_ms, b_by = bound_ms(fwd_bytes, flops_a + 3 * B * F * H * R + 2 * B * H * R * P)
+    out["fm_cross_pallas"] = dict(
+        name="fm_cross_pallas", route="cuda", source="tossctr_tpu_torch/csrc/fm_cross.cu",
+        replaces="tossctr_tpu/ops/pallas_kernels.py:147",
+        max_abs_err=max(v for (t, n), v in errs.items() if t == "bf16" and n == "out"),
+        max_abs_err_fp32=errs[("fp32", "out")],
+        ms=cuda_time_ms(lambda: fm_cross_pallas_fwd(z, U, V)),
+        plain_ms=cuda_time_ms(lambda: fm_cross_pallas_reference(z, U, V)),
+        multihead_ms=cuda_time_ms(lambda: fm_cross_multihead(z, U, V)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    bwd_bytes = zb * (2 * z.numel() + U.numel() + V.numel() + gr.numel()) + 4 * (
+        U.numel() + V.numel())
+    b_ms, b_by = bound_ms(bwd_bytes, 3 * flops_a + 4 * B * H * R * P + 6 * B * F * H * R)
+    zl, Ul, Vl = (t.detach().requires_grad_() for t in (z, U, V))
+    ref_out = fm_cross_multihead(zl, Ul, Vl)
+    out["fm_cross_pallas_bwd"] = dict(
+        name="fm_cross_pallas_bwd", route="cuda", source="tossctr_tpu_torch/csrc/fm_cross_bwd.cu",
+        replaces="tossctr_tpu/ops/pallas_kernels.py:173",
+        max_abs_err=max(v for (t, n), v in errs.items() if t == "bf16" and n != "out"),
+        max_abs_err_fp32=max(v for (t, n), v in errs.items() if t == "fp32" and n != "out"),
+        ms=cuda_time_ms(lambda: fm_cross_pallas_bwd(z, U, V, gr)),
+        plain_ms=cuda_time_ms(lambda: fm_cross_pallas_bwd_reference(z, U, V, gr)),
+        multihead_ms=cuda_time_ms(
+            lambda: torch.autograd.grad(ref_out, (zl, Ul, Vl), gr, retain_graph=True)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
+    del z, U, V, gr, zl, Ul, Vl, ref_out
+    # the autograd wrapper's backward is the kernel
+    z, U, V, gr = (t.requires_grad_(i < 3) for i, t in enumerate(inputs(torch.bfloat16)))
+    before = fm_cross_pallas_bwd.launches
+    fm_cross_pallas(z, U, V).backward(gr)
+    torch.cuda.synchronize()
+    if fm_cross_pallas_bwd.launches != before + 1 or U.grad.dtype != U.dtype:
+        raise AssertionError("fm_cross_pallas's backward did not run its kernel")
+    return out
 
 
 def write_checkpoints(cfg, dims, dev):
@@ -526,12 +633,13 @@ def training_phase(cfg, cache, dev):
         f"{TRAIN_STEPS * cfg.train.batch_size / wall:.1f} examples/s (B={cfg.train.batch_size}, "
         f"no claim), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[train] losses {[round(x, 6) for x in losses]}")
-    log(f"[train] launches during the {TRAIN_STEPS} steps: {launches}, expected "
-        f"{3 * TRAIN_STEPS} each (3 layers a step)")
+    expected = {k: 0 if k.startswith("fm_cross") else 3 * TRAIN_STEPS for k in launches}
+    log(f"[train] launches during the {TRAIN_STEPS} steps: {launches}, expected {expected} "
+        f"(3 layers a step; the QNN takes its plain path without model.extra.use_pallas_fm)")
     if not all(np.isfinite(losses)) or not np.isfinite(first):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if any(n != 3 * TRAIN_STEPS for n in launches.values()):
-        raise AssertionError(f"kernel launches {launches} != {3 * TRAIN_STEPS} each")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} != {expected}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -554,6 +662,176 @@ def training_phase(cfg, cache, dev):
     del state, step, model, batches
     torch.cuda.empty_cache()
     return launches
+
+
+def fold_phase(tmp, test_man, dev):
+    """The K-fold entry point at full width: ``train_main`` on the flagship
+    config with the FM-cross kernels (``model.extra.use_pallas_fm``) over
+    a synthetic train cache, cut to one fold of five, two epochs and
+    FOLD_ROWS rows; a second ``train_main``, through the CLI, skips the
+    finished fold; ``infer_main`` serves the checkpoint.  Checks the
+    train log, the checkpoint, the submission and every kernel's launches
+    (training steps, validation and serving batches); reports wall time,
+    ms/step and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+    from tossctr_tpu_torch.data import ShardCache
+    from tossctr_tpu_torch.data.dataset import load_labels_groups_for_split
+    from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.train import trainer
+    from tossctr_tpu_torch.train.cv_split import StratifiedGroupKFold
+
+    d = flagship_config_dict()
+    epochs_cfg = d["train"]["epochs"]
+    d["exp_name"] = "chip_fold"
+    d["model"].setdefault("extra", {})["use_pallas_fm"] = True
+    d["cv"]["n_splits"] = 1
+    d["train"]["epochs"] = FOLD_EPOCHS
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    t0 = time.time()
+    d["data"]["manifest_train"] = write_synth_cache_for(
+        Config.from_dict(copy.deepcopy(d)), os.path.join(tmp, "cache", "fold_train"), FOLD_ROWS,
+        num_dim=N_NUM, seed=23)
+    d["data"]["manifest_test"] = test_man
+    cfg = Config.from_dict(d)
+    B = cfg.train.batch_size
+    log(f"[fold] cuts: cv.n_splits 1 (the first of max(5, n_splits) = 5 folds; configured "
+        f"{flagship_config_dict()['cv']['n_splits']}), train.epochs {FOLD_EPOCHS} (configured "
+        f"{epochs_cfg}), {FOLD_ROWS} synthetic train rows; step checkpointing on as configured; "
+        f"model.extra.use_pallas_fm true; cache written in {time.time() - t0:.1f} s")
+
+    # the split the loop will make, for the expected launch counts
+    t0 = time.perf_counter()
+    y, groups = load_labels_groups_for_split(cfg.data.manifest_train)
+    tr, va = next(StratifiedGroupKFold(5, shuffle=True, random_state=cfg.seed)
+                  .split(np.zeros_like(y), y, groups))
+    split_s = time.perf_counter() - t0
+    steps = FOLD_EPOCHS * -(-len(tr) // B)
+    val_batches = FOLD_EPOCHS * -(-len(va) // B)
+    n_layers = cfg.sequence.tfm.n_layers
+
+    epochs = []  # (examples, seconds) of each epoch's steps, from the loop's own counter
+
+    class Recording(trainer.Logger):
+        def throughput(self, tag, step, examples, seconds):
+            epochs.append((examples, seconds))
+            super().throughput(tag, step, examples, seconds)
+
+    # wall time of the loop's parts, read through the names it calls
+    spent = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+        return run
+
+    parts = ("init_params", "run_validation", "save_fold_checkpoint", "save_train_state")
+    real = {n: getattr(trainer, n) for n in parts}
+    trainer.Logger, real_logger = Recording, trainer.Logger
+    for n in parts:
+        setattr(trainer, n, timed(n, real[n]))
+    try:
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            exp = trainer.train_main(cfg, device=dev)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+    finally:
+        trainer.Logger = real_logger
+        for n, fn in real.items():
+            setattr(trainer, n, fn)
+    want = {"fm_cross_pallas": steps + val_batches, "fm_cross_pallas_bwd": steps}
+    for k in counts:
+        if k not in want:
+            want[k] = n_layers * (steps if k.endswith("_bwd") else steps + val_batches)
+    log(f"[fold] train_main: {len(tr)} train rows, {len(va)} validation rows, {steps} steps and "
+        f"{val_batches} validation batches in {wall:.2f} s (under a device-only profiler); "
+        f"launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"fold launches {counts} != {want}")
+    for i, (ex, sec) in enumerate(epochs, 1):
+        log(f"[fold] epoch {i}: {ex // B} steps in {sec:.3f} s = {1e3 * sec / (ex // B):.2f} "
+            f"ms/step, {ex / sec:.1f} examples/s (host input, steps and transfers)")
+    step_s = sum(sec for _, sec in epochs)
+    log(f"[fold] train_main's {wall:.2f} s: the steps {step_s:.2f} s, "
+        + ", ".join(f"{n} {v:.2f} s" for n, v in spent.items())
+        + f", the rest (the split, ~{split_s:.2f} s apart, the model build, calibration, "
+        f"logs) {wall - step_s - sum(spent.values()):.2f} s")
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in events) / 1e6
+    fm_s = sum(e.self_device_time_total for e in events
+               if "fm_fwd" in e.key or "fm_bwd" in e.key or "fm_dv" in e.key) / 1e6
+    copy_s = sum(e.self_device_time_total for e in events if "Memcpy" in e.key) / 1e6
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    log(f"[fold] device time {device_s:.4f} s of {wall:.2f} s wall, {copy_s:.4f} s of it copies "
+        f"(the checkpoints' device-to-host reads among them); the FM-cross kernels "
+        f"{fm_s:.4f} s = {fm_s / max(device_s, 1e-12):.2%} of it, "
+        f"{fm_s / max(device_s - copy_s, 1e-12):.2%} of the time outside copies; by kernel: "
+        + "; ".join(
+            f"{e.key[:50]} {e.self_device_time_total / 1e3:.3f} ms" for e in top))
+    with open(os.path.join(exp, "train_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        log(f"[fold] train_log.csv: " + ", ".join(f"{k}={v}" for k, v in r.items()))
+    if [(r["epoch"], r["split"]) for r in rows] != [
+            (str(e), s) for e in range(1, FOLD_EPOCHS + 1) for s in ("val", "val_cal")]:
+        raise AssertionError(f"train_log.csv rows {rows}")
+    if not all(np.isfinite(float(r[k])) for r in rows for k in ("AP", "WLL", "Score")):
+        raise AssertionError("non-finite validation metrics")
+    ck = os.path.join(exp, "ckpt_folds_0")
+    files = sorted(os.listdir(ck))
+    with open(os.path.join(ck, "meta.json")) as f:
+        meta = json.load(f)
+    log(f"[fold] checkpoint {ck}: {files}; best epoch {meta['epoch']}, score {meta['score']:.6f}")
+    if files != ["calibrator.json", "ema.pt", "meta.json", "params.pt"] or os.path.exists(
+            os.path.join(exp, "fold_0_state.pt")):
+        raise AssertionError("the fold checkpoint is not complete")
+
+    # the CLI again: the finished fold is skipped
+    cfg_path = os.path.join(tmp, "chip_fold.json")
+    with open(cfg_path, "w") as f:
+        json.dump(d, f)
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "tossctr_tpu_torch.train", "--cfg", cfg_path,
+                        "--device", dev.type],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    log(f"[fold] python -m tossctr_tpu_torch.train --cfg {cfg_path} again: exit {r.returncode} "
+        f"in {time.time() - t0:.1f} s: {' | '.join(r.stdout.strip().splitlines())}")
+    if r.returncode != 0 or "split=skip" not in r.stdout:
+        raise AssertionError(f"the CLI did not skip the finished fold:\n{r.stderr[-4000:]}")
+
+    cache = ShardCache(test_man)
+    n_batches = -(-len(cache) // B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path = infer_main(cfg, device=dev)
+    serve_wall = time.time() - t0
+    served = launch_counts()
+    want = {k: 0 if k.endswith("_bwd") else n_batches * (1 if k.startswith("fm") else n_layers)
+            for k in served}
+    log(f"[fold] infer_main served the fold's checkpoint: {path} in {serve_wall:.2f} s; "
+        f"launches {served}, expected {want}")
+    if served != want:
+        raise AssertionError(f"serving launches {served} != {want}")
+    probs = check_submission(path, cache)
+    log(f"[fold] submission: {len(probs)} rows, probabilities in [{probs.min():.6f}, "
+        f"{probs.max():.6f}], mean {probs.mean():.6f}")
+    torch.cuda.empty_cache()
+    return counts, served
 
 
 @contextlib.contextmanager
@@ -821,10 +1099,12 @@ def main() -> int:
         want = N_FOLDS * n_batches * cfg.sequence.tfm.n_layers
         log(f"[serve] infer_main wrote {path} in {wall:.2f} s (checkpoint loading included): "
             f"{len(cache) / wall:.1f} examples/s end to end")
-        expected = {k: (0 if k.endswith("_bwd") else want) for k in counts}
-        log(f"[serve] launches during infer_main: {counts}, expected {want} of each forward "
-            f"kernel ({N_FOLDS} folds x {n_batches} batches x {cfg.sequence.tfm.n_layers} "
-            f"layers) and no backward")
+        expected = {k: (0 if k.endswith("_bwd") or k.startswith("fm_cross") else want)
+                    for k in counts}
+        log(f"[serve] launches during infer_main: {counts}, expected {want} of each encoder "
+            f"forward kernel ({N_FOLDS} folds x {n_batches} batches x "
+            f"{cfg.sequence.tfm.n_layers} layers), no backward, and no FM-cross kernel (the "
+            f"plain path without model.extra.use_pallas_fm)")
         if counts != expected:
             raise AssertionError(f"kernel launches {counts} != {expected}")
         probs = check_submission(path, cache)
@@ -844,10 +1124,22 @@ def main() -> int:
         train_launches = training_phase(base_cfg, train_cache, dev)
         for amp in CHECK_BANDS:
             train_reference_check(flagship_config_dict(), train_cache, dev, amp)
+        del train_cache
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        fold_launches, fold_served = fold_phase(tmp, man, dev)
+        fold_wall = time.time() - t0
 
     for name, r in kernels.items():
-        r["launches"] = train_launches[name]
-        r["launches_serving"] = counts[name]
+        # each kernel's launches on the path that is its own: the encoder
+        # kernels' in the training phase, the FM pair's in the fold phase
+        fm = name.startswith("fm_cross")
+        r["launches"] = fold_launches[name] if fm else train_launches[name]
+        r["launches_serving"] = fold_served[name] if fm else counts[name]
+        r["launches_fold"] = fold_launches[name]
+    total = time.time() - T_START
+    log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s of it "
+        f"({total - fold_wall:.1f} s without)")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

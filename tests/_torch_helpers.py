@@ -110,6 +110,13 @@ def tiny_cfg_dict(amp: str = "none", **over) -> dict:
     return d
 
 
+# five categorical columns: 1 + NUM_DIM + NUM_DIM + 5 = 16 QNN tokens, a
+# multiple of 8, so ``model.extra.use_pallas_fm`` takes the FM-cross kernels
+FM_CATS = {"cat_cols": ["gender", "inventory_id", "l_feat_1", "l_feat_2", "l_feat_3"],
+           "hash_buckets": {"gender": 10, "inventory_id": 50, "l_feat_1": 20, "l_feat_2": 30,
+                            "l_feat_3": 15}}
+
+
 def dims_for(d: dict) -> dict:
     return {"X_num": NUM_DIM, "X_mask": NUM_DIM, "X_cat": len(d["data"]["cat_cols"]),
             "seq_len": d["sequence"]["max_len"]}

@@ -5,18 +5,21 @@ the card's machine:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
 
-Every kernel runs with dropout off and on (p = 0.1, the flagship's
-rate; the counter-hash mask is the same on the card and in the plain
-version).  Tolerances:
+Every encoder kernel runs with dropout off and on (p = 0.1, the
+flagship's rate; the counter-hash mask is the same on the card and in
+the plain version); the FM-cross pair runs at the flagship's QNN shapes
+and at ragged ones (B, F, D and H*R not multiples of the kernels' 4-wide
+tiles).  Tolerances:
 
 * fp32: 1e-5 of the largest magnitude of each output (the same fp32
   arithmetic in another summation order);
-* bf16 activations (the forwards' outputs, dx, do): 3 ulps of the
+* bf16 activations (the forwards' outputs, dx, do, dz): 3 ulps of the
   largest output (each bf16 rounding point can land one ulp apart when
   the fp32 sums differ in order);
 * bf16 weight gradients (fp32 sums over the batch of bf16-rounded
-  terms): 1e-2 of the largest magnitude, since a rounding point that lands
-  one ulp apart (2**-8 relative) moves one term of the sum.
+  terms; FM's dU and dV, fp32 sums of bf16 inputs): 1e-2 of the largest
+  magnitude, since a rounding point that lands one ulp apart (2**-8
+  relative) moves one term of the sum.
 
 The backward kernels reduce their per-block partial sums in a fixed
 order, so a second call must repeat the first bit for bit.  One test
@@ -40,6 +43,10 @@ def test_cuda_kernels_match_plain_versions():
         pytest.skip("needs a CUDA card: the kernels have no CPU or interpret mode")
 
     from tossctr_tpu_torch.ops import (
+        fm_cross_pallas,
+        fm_cross_pallas_bwd,
+        fm_cross_pallas_bwd_reference,
+        fm_cross_pallas_reference,
         fused_block_tail,
         fused_block_tail_bwd,
         fused_block_tail_bwd_reference,
@@ -49,6 +56,8 @@ def test_cuda_kernels_match_plain_versions():
         fused_mha_qkv_bwd_reference,
         fused_mha_qkv_reference,
     )
+
+    from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd as fm_cross_pallas_fwd_only
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -137,6 +146,43 @@ def test_cuda_kernels_match_plain_versions():
             close(name, dtype, got[i], want[i], activation=i < 2)
             assert torch.equal(got[i], again[i]), f"{name} changed between two calls"
 
+    def fm_args(dtype, B, F, D, Hh, R, P):
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        gen = torch.Generator().manual_seed(3)
+        z = torch.randn(B, F, D, generator=gen)
+        U = torch.randn(Hh, D, R, generator=gen) * 0.1
+        V = torch.randn(Hh, R, P, generator=gen) * 0.1
+        g = torch.randn(B, Hh * P, generator=gen)
+        return [t.to(dev, dt) for t in (z, U, V, g)]
+
+    def fm_cross(dtype, *shape):
+        z, U, V, g = fm_args(dtype, *shape)
+        before = (fm_cross_pallas.launches, fm_cross_pallas_bwd.launches)
+        got = fm_cross_pallas_fwd_only(z, U, V)
+        dgot = fm_cross_pallas_bwd(z, U, V, g)
+        again = fm_cross_pallas_bwd(z, U, V, g)
+        torch.cuda.synchronize()
+        assert (fm_cross_pallas.launches, fm_cross_pallas_bwd.launches) == (before[0] + 1,
+                                                                           before[1] + 2)
+        close("out", dtype, got, fm_cross_pallas_reference(z, U, V))
+        want = fm_cross_pallas_bwd_reference(z, U, V, g)
+        for i, name in enumerate(("dz", "dU", "dV")):
+            close(name, dtype, dgot[i], want[i], activation=i == 0)
+            assert torch.equal(dgot[i], again[i]), f"{name} changed between two calls"
+
+    def fm_cross_autograd(dtype, *shape):
+        """fm_cross_pallas's backward is the kernel, dU and dV in U's and V's dtypes."""
+        z, U, V, g = fm_args(dtype, *shape)
+        leaves = [t.detach().requires_grad_() for t in (z, U, V)]
+        before = fm_cross_pallas_bwd.launches
+        fm_cross_pallas(*leaves).backward(g)
+        torch.cuda.synchronize()
+        assert fm_cross_pallas_bwd.launches == before + 1
+        want = fm_cross_pallas_bwd_reference(z, U, V, g)
+        for name, t, ref in zip(("dz", "dU", "dV"), leaves, want):
+            assert t.grad.dtype == t.dtype, (name, t.grad.dtype)
+            close(name, dtype, t.grad, ref.to(t.dtype), activation=name == "dz")
+
     def kernels_refuse_what_they_do_not_take():
         x, w, b, bias = (torch.from_numpy(a).to(dev) for a in attn_inputs(0))
         with pytest.raises(ValueError):
@@ -148,6 +194,12 @@ def test_cuda_kernels_match_plain_versions():
             fused_block_tail(*ts)  # D > 64
         with pytest.raises(ValueError):
             fused_block_tail_bwd(*ts, ts[0])  # D > 64
+        z, U, V, g = fm_args("f32", 4, 8, 68, 2, 4, 8)
+        with pytest.raises(ValueError):
+            fm_cross_pallas(z, U, V)  # D > 64
+        z, U, V, g = fm_args("f32", 4, 8, 16, 12, 12, 8)
+        with pytest.raises(ValueError):
+            fm_cross_pallas_bwd(z, U, V, g)  # H*R > 128
 
     checks = Checks()
     for dtype in ("f32", "bf16"):
@@ -161,5 +213,10 @@ def test_cuda_kernels_match_plain_versions():
                 checks.run(f"block tail {tag}", block_tail, dtype, N, D, F, p)
                 checks.run(f"block tail bwd {tag}", block_tail_bwd, dtype, N, D, F, p)
         checks.run(f"attention autograd {dtype}", attention_autograd, dtype, 7, 64, 64, 8, P_DROP)
+        # (B, F, D, H, R, P): the flagship's QNN at a ragged batch, a ragged
+        # shape of every dimension, a single row
+        for shape in ((67, 200, 64, 6, 16, 192), (5, 13, 10, 3, 5, 7), (1, 8, 16, 2, 4, 8)):
+            checks.run(f"fm cross {dtype} {shape}", fm_cross, dtype, *shape)
+        checks.run(f"fm cross autograd {dtype}", fm_cross_autograd, dtype, 9, 16, 16, 2, 4, 8)
     checks.run("kernels refuse what they do not take", kernels_refuse_what_they_do_not_take)
     checks.done()

@@ -1,7 +1,8 @@
 """Import hygiene and device rules of the PyTorch port, each checked in a
-fresh interpreter: importing every module of ``tossctr_tpu_torch`` pulls
-in neither JAX, flax, msgpack, PyYAML, sklearn, pyarrow, polars nor the
-JAX package (the card's machine has none of them); no source of
+fresh interpreter: importing every module of ``tossctr_tpu_torch`` (the
+CLIs' ``__main__`` modules, the fold loop and the FM-cross ops among
+them) pulls in neither JAX, flax, msgpack, PyYAML, sklearn, pyarrow,
+polars nor the JAX package (the card's machine has none of them); no source of
 the port (or ``chip_smoke.py``) imports them; and an entry point called
 without ``device`` on a machine without CUDA raises instead of running
 on the CPU.  One test item (see ``_torch_helpers``)."""
@@ -46,8 +47,10 @@ def test_port_import_and_device_hygiene(tmp_path):
     import torch
 
     def importing_every_module_loads_none_of_them():
-        mods = [m for m in _modules() if not m.endswith("__main__")]
-        assert "tossctr_tpu_torch.ops.fused_attention" in mods
+        mods = _modules()
+        for m in ("ops.fused_attention", "ops.fm_cross", "train.trainer", "train.cv_split",
+                  "train.__main__", "infer.__main__"):
+            assert f"tossctr_tpu_torch.{m}" in mods, m
         r = _run(f"""
             import importlib, sys
             for m in {mods!r}:
@@ -68,9 +71,11 @@ def test_port_import_and_device_hygiene(tmp_path):
             from tossctr_tpu_torch.config import Config
             from tossctr_tpu_torch.infer import infer_main
             from tossctr_tpu_torch.models import build_model
+            from tossctr_tpu_torch.train.trainer import train_main
             cfg = Config.from_dict({{"logging": {{"log_dir": {str(tmp_path)!r}}}}})
             dims = {{"X_num": 2, "X_mask": 2, "X_cat": 0, "seq_len": 8}}
-            for call in (lambda: infer_main(cfg), lambda: build_model(cfg, dims)):
+            for call in (lambda: infer_main(cfg), lambda: build_model(cfg, dims),
+                         lambda: train_main(cfg)):
                 try:
                     call()
                 except RuntimeError as e:
@@ -79,7 +84,7 @@ def test_port_import_and_device_hygiene(tmp_path):
                     print("RAN")
         """)
         assert r.returncode == 0, r.stderr
-        assert r.stdout.split("\n")[:2] == ["RAISED True", "RAISED True"], r.stdout
+        assert r.stdout.split("\n")[:3] == ["RAISED True"] * 3, r.stdout
 
     checks = Checks()
     checks.run("importing every module", importing_every_module_loads_none_of_them)

@@ -81,7 +81,6 @@ def test_model_matches_flax():
             {"model": {"use_pallas_ffn": False}},
             {"model": {"fused_seq_tables": False}},
             {"sequence": {"select_chunk": 8}},
-            {"model": {"extra": {"use_pallas_fm": True}}},
         ):
             checks.run(f"unported {over} raises", unported_path_raises, over)
     checks.done()

@@ -530,16 +530,21 @@ def deep_merge(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def load_yaml_with_base(path: str) -> Dict[str, Any]:
-    """Load a YAML config, resolving an optional top-level ``base:`` key
+    """Load a YAML (or JSON) config, resolving an optional top-level ``base:`` key
     (path relative to the file) whose dict the file deep-merges onto.
     Lets the experiment family (cfgs/dare_base_tpu.yaml …) stay compact
     deltas instead of near-identical 150-line copies."""
     import os
 
-    import yaml  # only the YAML entry point needs PyYAML
-
     with open(path, "r") as f:
-        d = yaml.safe_load(f) or {}
+        if path.endswith(".json"):  # no PyYAML needed
+            import json
+
+            d = json.load(f) or {}
+        else:
+            import yaml  # only the YAML entry point needs PyYAML
+
+            d = yaml.safe_load(f) or {}
     base_rel = d.pop("base", None)
     if base_rel is None:
         return d

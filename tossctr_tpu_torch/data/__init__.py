@@ -1,5 +1,6 @@
 from .dataset import ShardCache
-from .loader import BatchIterator
-from .sampler import ShuffleBatchSampler
+from .loader import BatchIterator, DevicePrefetcher
+from .sampler import BalancedBatchSampler, ShuffleBatchSampler
 
-__all__ = ["ShardCache", "BatchIterator", "ShuffleBatchSampler"]
+__all__ = ["BalancedBatchSampler", "BatchIterator", "DevicePrefetcher", "ShardCache",
+           "ShuffleBatchSampler"]

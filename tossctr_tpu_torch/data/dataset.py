@@ -1,11 +1,11 @@
 """Shard-cache reading: batch-granular gathers over mmap'd NPY shards.
 
-Port of ``tossctr_tpu/data/dataset.py`` for the serving path: the same
-``manifest.json`` format (written by ``tossctr_tpu/data/etl.py`` or by
-this package's ``data/synth.py``), the same ``dims`` and the same
-``gather`` (features with labels for training, with ids for serving),
-with NumPy gathers only (the native threaded gather of the JAX
-package waits for a later slice).
+Port of ``tossctr_tpu/data/dataset.py``: the same ``manifest.json``
+format (written by ``tossctr_tpu/data/etl.py`` or by this package's
+``data/synth.py``), the same ``dims``, the same ``gather`` (features
+with labels for training, with ids for serving) and the labels and CV
+groups of the whole cache for the fold split, with NumPy gathers only
+(the native threaded gather of the JAX package waits for a later slice).
 """
 
 from __future__ import annotations
@@ -104,3 +104,17 @@ class ShardCache:
             elif "ids" in arrs:
                 batch["ids"][sel] = arrs["ids"][li_sorted][inv]
         return batch
+
+    def labels(self) -> np.ndarray:
+        """Every row's label, in cache order."""
+        return np.concatenate([np.asarray(s.arrs["y"]) for s in self.shards])
+
+    def groups(self) -> np.ndarray:
+        """Every row's CV group id, in cache order."""
+        return np.concatenate([np.asarray(s.arrs["groups"]) for s in self.shards])
+
+
+def load_labels_groups_for_split(manifest_path: str):
+    """(y, groups) concatenated across shards for the CV split."""
+    cache = ShardCache(manifest_path)
+    return cache.labels(), cache.groups()

@@ -1,10 +1,13 @@
 """Probability calibration by temperature scaling.
 
-Port of ``tossctr_tpu/eval/calibration.py`` for serving with the
-temperature method: ``TemperatureScaler`` and ``Calibrator.predict_proba``.
-The attribute names are the JAX package's, so a ``calibrator.pkl``
-written there unpickles onto these classes (``train/checkpoint.py``).
-Fitting comes with the training slice; isotonic calibration (sklearn)
+Port of ``tossctr_tpu/eval/calibration.py`` with the temperature method:
+``fit_temperature`` (the same objective as the JAX package's: the
+50:50-weighted NLL of sigmoid(z / T) plus ``l2_reg * (T - 1)^2``, over
+log T by scipy's L-BFGS-B with the analytic gradient, log T bounded to
+the clamp interval), ``TemperatureScaler``, ``Calibrator.fit`` and
+``Calibrator.predict_proba``.  The attribute names are the JAX
+package's, so a ``calibrator.pkl`` written there unpickles onto these
+classes (``train/checkpoint.py``).  Isotonic calibration (sklearn)
 waits for a later slice and raises.
 """
 
@@ -37,6 +40,37 @@ class TemperatureScaler:
         return np.asarray(logits, dtype=np.float64) / self.T_eff
 
 
+def fit_temperature(logits, y, lr: float = 0.05, iters: int = 200, clamp_T=(0.2, 5.0),
+                    l2_reg: float = 1e-3) -> TemperatureScaler:
+    """The temperature minimising the 50:50-weighted NLL of sigmoid(z / T)
+    plus ``l2_reg * (T - 1)^2``.  ``lr`` is kept for config parity:
+    L-BFGS-B needs none."""
+    from scipy.optimize import minimize
+
+    z = np.asarray(logits, dtype=np.float64).ravel()
+    t = np.asarray(y, dtype=np.float64).ravel()
+    n_pos = max(1, int(t.sum()))
+    n_neg = max(1, int((t == 0).sum()))
+    lo, hi = clamp_T if clamp_T is not None else (1e-3, 1e3)
+
+    def objective(lt):
+        T = float(np.exp(lt[0]))
+        zt = z / T
+        p = np.clip(_sigmoid_stable(zt), 1e-7, 1 - 1e-7)
+        loss_pos = -np.sum(t * np.log(p)) / n_pos
+        loss_neg = -np.sum((1 - t) * np.log(1 - p)) / n_neg
+        loss = 0.5 * (loss_pos + loss_neg) + l2_reg * (T - 1.0) ** 2
+        # d zt/d lt = -zt; d(-log p)/d zt = -(1 - p); d(-log(1 - p))/d zt = p
+        g_pos = np.sum(t * (1 - p) * zt) / n_pos
+        g_neg = -np.sum((1 - t) * p * zt) / n_neg
+        grad = 0.5 * (g_pos + g_neg) + 2.0 * l2_reg * (T - 1.0) * T
+        return loss, np.array([grad])
+
+    res = minimize(objective, x0=np.array([0.0]), jac=True, method="L-BFGS-B",
+                   bounds=[(np.log(lo), np.log(hi))], options={"maxiter": int(iters)})
+    return TemperatureScaler(T=float(np.exp(res.x[0])), clamp_T=clamp_T)
+
+
 class Calibrator:
     """method: 'temperature' (isotonic variants are not ported)."""
 
@@ -56,6 +90,13 @@ class Calibrator:
             raise NotImplementedError(
                 f"calibration method {self.method!r}: only temperature scaling is ported"
             )
+
+    def fit(self, logits, y) -> "Calibrator":
+        self._require_temperature()
+        self.temp_scaler = fit_temperature(
+            np.asarray(logits, dtype=np.float64).ravel(), np.asarray(y, dtype=np.int32).ravel(),
+            lr=self.lr, iters=self.iters, clamp_T=self.clamp_T, l2_reg=self.l2_reg)
+        return self
 
     def predict_proba(self, logits) -> np.ndarray:
         self._require_temperature()

@@ -194,7 +194,8 @@ class GroupedCatEmbedding(nn.Module):
 
 
 class CTRModel(nn.Module):
-    def __init__(self, spec: ModelSpec, dtype=torch.float32, *, se_batch_stats: bool = True):
+    def __init__(self, spec: ModelSpec, dtype=torch.float32, *, se_batch_stats: bool = True,
+                 use_pallas_fm: bool = False):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -218,7 +219,8 @@ class CTRModel(nn.Module):
         )
         if sp.qnn_enabled:
             self.qnn = QNNAlpha(sp.n_feat, D, se_batch_stats=se_batch_stats,
-                                block_slices=sp.block_slices, **sp.qnn)
+                                block_slices=sp.block_slices, use_pallas=use_pallas_fm,
+                                **sp.qnn)
         else:
             feats = D * (1 + (sp.num_dim > 0) + (sp.mask_dim > 0) + len(sp.cat_cols))
             self.fc_0 = Dense(feats, 512)
@@ -282,8 +284,9 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     parameters allocated on ``device``: the dense parameters trainable,
     the sequence table without grad (the trainer updates its rows).
     ``model.use_pallas_attention`` / ``use_pallas_ffn`` None or true
-    select the kernel path, the only one ported; a config that asks for an
-    unported path raises."""
+    select the encoder's kernel path, the only one ported;
+    ``model.extra.use_pallas_fm`` selects the FM-cross kernels of the
+    QNN-alpha head.  A config that asks for an unported path raises."""
     m, s = cfg.model, cfg.sequence
     unported = {
         "model.use_pallas_attention: false (the unfused encoder)": m.use_pallas_attention is False,
@@ -292,14 +295,14 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
         "model.qnn_alpha.norm other than rms": m.qnn_alpha.norm.lower() != "rms",
         "model.fused_seq_tables: false (split tables)": not m.fused_seq_tables,
         "sequence.select_chunk / select_proxy": bool(s.select_chunk or s.select_proxy),
-        "model.extra.use_pallas_fm (the FM-cross kernel)": bool(m.extra.get("use_pallas_fm")),
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(f"not ported to tossctr_tpu_torch yet: {', '.join(asked)}")
     with torch.device(resolve_device(device)):
         return CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
-                        se_batch_stats=bool(m.qnn_alpha.se_batch_stats))
+                        se_batch_stats=bool(m.qnn_alpha.se_batch_stats),
+                        use_pallas_fm=bool(m.extra.get("use_pallas_fm", False)))
 
 
 @torch.no_grad()

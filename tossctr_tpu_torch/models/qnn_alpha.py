@@ -2,7 +2,10 @@
 
 Port of ``tossctr_tpu/models/qnn_alpha.py``: over the (B, F, D) token
 stack, RMSNorm over the flattened F*D features (the flax auto-named
-``RMSNorm_0``), multi-head low-rank FM crosses, squeeze-excite with the
+``RMSNorm_0``), multi-head low-rank FM crosses (per block of features
+with ``pair_grouping: block``; else through the FM-cross kernels with
+``use_pallas`` when F % 8 == 0, the JAX package's rule; else the plain
+einsum path), squeeze-excite with the
 batch-mean quirk, then an MLP over [flattened base | interactions], with
 dropout on the interactions and after each hidden layer when training.
 """
@@ -14,7 +17,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops.fm_cross import fm_cross_blocked, fm_cross_multihead
+from ..ops.fm_cross import fm_cross_blocked, fm_cross_multihead, fm_cross_pallas
 from .layers import Dense, DropoutRNG, RMSNorm, SEBlock
 
 
@@ -23,10 +26,12 @@ class QNNAlpha(nn.Module):
                  proj_dim: int = 256, mlp_hidden: Sequence[int] = (512, 256),
                  dropout: float = 0.1, use_se: bool = True, se_reduction: int = 8,
                  se_batch_stats: bool = True, use_residual: bool = True,
-                 pair_grouping: str = "all", block_slices: Optional[Dict[str, Tuple[int, int]]] = None):
+                 pair_grouping: str = "all", block_slices: Optional[Dict[str, Tuple[int, int]]] = None,
+                 use_pallas: bool = False):
         super().__init__()
         self.in_feat, self.emb_dim = in_feat, emb_dim
         self.pair_grouping = pair_grouping
+        self.use_pallas = bool(use_pallas)
         self.dropout = float(dropout)
         self.use_residual = use_residual
         self.block_slices = dict(block_slices or {})
@@ -48,6 +53,8 @@ class QNNAlpha(nn.Module):
         U, V = self.U.to(dtype), self.V.to(dtype)
         if self.pair_grouping == "block" and self.block_slices:
             inter = fm_cross_blocked(z, U, V, self.block_slices)
+        elif self.use_pallas and F % 8 == 0:
+            inter = fm_cross_pallas(z.contiguous(), U.contiguous(), V.contiguous())
         else:
             inter = fm_cross_multihead(z, U, V)
         if self.se is not None:

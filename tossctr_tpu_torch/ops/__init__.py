@@ -1,11 +1,19 @@
-"""Ops of the port: dense top-k selection and the FM cross in plain
+"""Ops of the port: dense top-k selection and the plain FM cross in
 PyTorch, the counter-hash dropout masks, and the hand-written CUDA
 kernels of the encoder layer (``fused_mha_qkv``, ``fused_block_tail``
-and their backwards) with their plain versions.  Importing this package
+and their backwards) and of the QNN-alpha head (``fm_cross_pallas`` and
+its backward) with their plain versions.  Importing this package
 builds nothing; the kernels build at first use."""
 
 from .dropout import dropout_keep_reference, ffn_keep_reference
-from .fm_cross import fm_cross_blocked, fm_cross_multihead
+from .fm_cross import (
+    fm_cross_blocked,
+    fm_cross_multihead,
+    fm_cross_pallas,
+    fm_cross_pallas_bwd,
+    fm_cross_pallas_bwd_reference,
+    fm_cross_pallas_reference,
+)
 from .fused_attention import (
     fused_mha_qkv,
     fused_mha_qkv_bwd,
@@ -21,7 +29,8 @@ from .fused_ffn import (
 from .topk_select import dare_select_ids, log_decay_at, recency_log_decay
 
 # every wrapper that launches a kernel and counts its launches
-KERNEL_WRAPPERS = (fused_mha_qkv, fused_block_tail, fused_mha_qkv_bwd, fused_block_tail_bwd)
+KERNEL_WRAPPERS = (fused_mha_qkv, fused_block_tail, fused_mha_qkv_bwd, fused_block_tail_bwd,
+                   fm_cross_pallas, fm_cross_pallas_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -41,6 +50,10 @@ __all__ = [
     "ffn_keep_reference",
     "fm_cross_blocked",
     "fm_cross_multihead",
+    "fm_cross_pallas",
+    "fm_cross_pallas_bwd",
+    "fm_cross_pallas_bwd_reference",
+    "fm_cross_pallas_reference",
     "fused_block_tail",
     "fused_block_tail_bwd",
     "fused_block_tail_bwd_reference",

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd")
+KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd",
+           "fm_cross", "fm_cross_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +49,8 @@ SIGNATURES = {
                           [_P] * 8 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
     "fused_block_tail_bwd": ("tossctr_fused_block_tail_bwd",
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
+    "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
+    "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -66,7 +69,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha1()
-    for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for p in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"

@@ -1,8 +1,21 @@
 """QNN-alpha multi-head low-rank FM crosses.
 
-Port of ``tossctr_tpu/ops/fm_cross.py``.  Per head, with A = z @ U_h
+Port of ``tossctr_tpu/ops/fm_cross.py`` and of the FM-cross kernel pair in
+``tossctr_tpu/ops/pallas_kernels.py``.  Per head, with A = z @ U_h
 (B, F, R): quad = (sum_f A)^2 - sum_f A^2, the pairwise-cross aggregate
 without forming F^2 pairs, then quad @ V_h.
+
+* ``fm_cross_multihead`` / ``fm_cross_blocked``: the plain einsum path
+  (A in the compute dtype), what the model runs without
+  ``model.extra.use_pallas_fm``.
+* ``fm_cross_pallas``: the kernel path.  Its kernels are
+  ``csrc/fm_cross.cu`` (forward) and ``csrc/fm_cross_bwd.cu`` (backward);
+  ``fm_cross_pallas_reference`` and ``fm_cross_pallas_bwd_reference`` are
+  the plain PyTorch versions with the Pallas kernels' rounding points
+  (A, its sums and quad in fp32; quad rounded to V's dtype before the V
+  product in the forward and not in the backward), used for CPU tensors
+  and to check the kernels on the card.  ``fm_cross_pallas`` is
+  differentiable: its backward is ``fm_cross_pallas_bwd``.
 """
 
 from __future__ import annotations
@@ -10,6 +23,11 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+from ._build import DTYPE_CODES, check_launch, load_library, persistent_blocks, stream_of
+
+MAX_D = 64  # the kernels' limits (csrc/fm_cross.cuh)
+MAX_C = 128  # H * R
 
 
 def fm_cross_multihead(z: torch.Tensor, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -32,3 +50,150 @@ def fm_cross_blocked(z: torch.Tensor, U: torch.Tensor, V: torch.Tensor,
     if not outs:
         return fm_cross_multihead(z, U, V)
     return sum(outs[1:], outs[0])
+
+
+def _fm_parts(z, U):
+    """A (B, H, F, R), s, quad (B, H, R), all fp32 sums of the inputs' values."""
+    A = torch.einsum("bfd,hdr->bhfr", z.float(), U.float())
+    s = A.sum(dim=2)
+    return A, s, s * s - (A * A).sum(dim=2)
+
+
+def fm_cross_pallas_reference(z, U, V):
+    """The kernel's function in plain PyTorch (pallas_kernels.py:51-73,
+    140-160): fp32 A, s and quad; quad rounded to V's dtype; the V product
+    summed in fp32 and the output rounded to z's dtype once -> (B, H*P)."""
+    B = z.shape[0]
+    H, _, P = V.shape
+    _, _, quad = _fm_parts(z, U)
+    out = torch.einsum("bhr,hrp->bhp", quad.to(V.dtype).float(), V.float())
+    return out.reshape(B, H * P).to(z.dtype)
+
+
+def fm_cross_pallas_bwd_reference(z, U, V, g):
+    """Gradients of ``fm_cross_pallas_reference`` w.r.t. z, U and V for the
+    output gradient ``g`` (B, H*P), with the Pallas backward's rounding
+    points (pallas_kernels.py:76-137): A recomputed in fp32, dV from the
+    unrounded quad, dquad = g V^T, dA = 2 dquad (s - A), dz summed over the
+    heads in fp32 and rounded to z's dtype once.  -> (dz, dU (H, D, R),
+    dV (H, R, P)), the last two fp32 sums over the batch."""
+    B, F, D = z.shape
+    H, R, P = V.shape
+    A, s, quad = _fm_parts(z, U)
+    gh = g.float().reshape(B, H, P)
+    dV = torch.einsum("bhr,bhp->hrp", quad, gh)
+    dquad = torch.einsum("bhp,hrp->bhr", gh, V.float())
+    dA = (2.0 * dquad)[:, :, None, :] * (s[:, :, None, :] - A)
+    dz = torch.einsum("bhfr,hdr->bfd", dA, U.float())
+    dU = torch.einsum("bfd,bhfr->hdr", z.float(), dA)
+    return dz.to(z.dtype), dU, dV
+
+
+def _check(z, U, V):
+    if z.dim() != 3 or U.dim() != 3 or V.dim() != 3:
+        raise ValueError(f"z (B, F, D), U (H, D, R), V (H, R, P) expected, got "
+                         f"{tuple(z.shape)}, {tuple(U.shape)}, {tuple(V.shape)}")
+    B, F, D = z.shape
+    H, D_u, R = U.shape
+    if D_u != D or V.shape[0] != H or V.shape[1] != R:
+        raise ValueError(f"shapes disagree: z {tuple(z.shape)}, U {tuple(U.shape)}, "
+                         f"V {tuple(V.shape)}")
+    if z.dtype not in DTYPE_CODES:
+        raise TypeError(f"z dtype must be float32 or bfloat16, got {z.dtype}")
+    for name, t in (("U", U), ("V", V)):
+        if t.dtype != z.dtype or t.device != z.device:
+            raise ValueError(f"{name} must be {z.dtype} on {z.device}, got {t.dtype} on {t.device}")
+
+
+def _cuda_args(name, tensors):
+    if tensors[0].device.type != "cuda":
+        raise RuntimeError(f"{name}: unsupported device {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    B, _, D = tensors[0].shape
+    H, _, R = tensors[1].shape
+    if B < 1 or D > MAX_D or H * R > MAX_C:
+        raise ValueError(f"{name} kernel takes B >= 1, D <= {MAX_D} and H*R <= {MAX_C}; "
+                         f"got B={B} D={D} H*R={H * R}")
+
+
+def fm_cross_pallas_fwd(z, U, V):
+    """The forward alone (no autograd): the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    _check(z, U, V)
+    if z.device.type == "cpu":
+        return fm_cross_pallas_reference(z, U, V)
+    _cuda_args("fm_cross_pallas", (z, U, V))
+    B, F, D = z.shape
+    H, R, P = V.shape
+    out = torch.empty(B, H * P, dtype=z.dtype, device=z.device)
+    lib = load_library("fm_cross")
+    rc = lib.tossctr_fm_cross_fwd(z.data_ptr(), U.data_ptr(), V.data_ptr(), out.data_ptr(),
+                                  B, F, D, H, R, P, DTYPE_CODES[z.dtype], z.device.index,
+                                  stream_of(z))
+    check_launch(lib, rc, "fm_cross_pallas")
+    fm_cross_pallas.launches += 1
+    return out
+
+
+def fm_cross_pallas_bwd(z, U, V, g):
+    """-> (dz, dU, dV), the last two fp32 sums over the batch: the kernel
+    on a CUDA tensor (per-block and per-chunk fp32 partials reduced in a
+    fixed order, so the result repeats bit for bit), the plain version on
+    a CPU tensor."""
+    _check(z, U, V)
+    B = z.shape[0]
+    H, R, P = V.shape
+    if tuple(g.shape) != (B, H * P) or g.dtype != z.dtype or g.device != z.device:
+        raise ValueError(f"g must be ({B}, {H * P}) {z.dtype} on {z.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} {g.device}")
+    if z.device.type == "cpu":
+        return fm_cross_pallas_bwd_reference(z, U, V, g)
+    _cuda_args("fm_cross_pallas_bwd", (z, U, V, g))
+    _, F, D = z.shape
+    lib = load_library("fm_cross_bwd")
+    blocks = persistent_blocks(z)
+    chunks = min(B, 64)
+    n_u, n_v = H * D * R, H * R * P
+    f32 = dict(dtype=torch.float32, device=z.device)
+    dz = torch.empty_like(z)
+    scratch = torch.empty(B * H * R + blocks * n_u + chunks * n_v, **f32)
+    quad, part_u, part_v = scratch.split([B * H * R, blocks * n_u, chunks * n_v])
+    grads = torch.empty(n_u + n_v, **f32)
+    rc = lib.tossctr_fm_cross_bwd(
+        z.data_ptr(), U.data_ptr(), V.data_ptr(), g.data_ptr(), dz.data_ptr(), quad.data_ptr(),
+        part_u.data_ptr(), part_v.data_ptr(), grads.data_ptr(), blocks, chunks,
+        B, F, D, H, R, P, DTYPE_CODES[z.dtype], z.device.index, stream_of(z),
+    )
+    check_launch(lib, rc, "fm_cross_pallas_bwd")
+    fm_cross_pallas_bwd.launches += 1
+    dU, dV = grads.split([n_u, n_v])
+    return dz, dU.view(H, D, R), dV.view(H, R, P)
+
+
+class _FMCross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z, U, V):
+        ctx.save_for_backward(z, U, V)
+        return fm_cross_pallas_fwd(z, U, V)
+
+    @staticmethod
+    def backward(ctx, g):
+        z, U, V = ctx.saved_tensors
+        dz, dU, dV = fm_cross_pallas_bwd(z, U, V, g.contiguous())
+        # dU, dV leave in the dtypes of U and V, as the Pallas custom_vjp
+        # returns them (pallas_kernels.py:215)
+        return dz, dU.to(U.dtype), dV.to(V.dtype)
+
+
+def fm_cross_pallas(z, U, V):
+    """Fused multi-head FM cross: z (B, F, D), U (H, D, R), V (H, R, P) of
+    one dtype -> (B, H*P) in that dtype.  Differentiable in z, U and V.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    or raise."""
+    return _FMCross.apply(z, U, V)
+
+
+fm_cross_pallas.launches = 0
+fm_cross_pallas_bwd.launches = 0
