@@ -5,9 +5,10 @@
 1. Prints the card's name and power limit; fails without a CUDA card.
 2. Builds the hand-written kernels from ``tossctr_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once.
-3. Kernel phase, at the flagship shapes in bf16: the two encoder forward
-   kernels with dropout off (serving) and on (training, p = 0.1), the two
-   encoder backward kernels with dropout on, and the FM-cross pair at the
+3. Kernel phase, at the flagship shapes in bf16: the encoder forward
+   kernels (``fused_mha_qkv``, ``fused_block_tail``, ``fused_mha``,
+   ``fused_ffn``) with dropout off (serving) and on (training, p = 0.1),
+   their backward kernels with dropout on, and the FM-cross pair at the
    QNN-alpha head's shapes (also in fp32), each against its plain PyTorch
    version (error and tolerance), its time from CUDA events beside the
    plain version's, a PyTorch yardstick where PyTorch computes the same
@@ -41,7 +42,25 @@
    checkpoint.  Checks the train log, the checkpoint, the submission and
    every kernel's launches; reports wall time, ms/step and the FM
    kernels' share of the device time.
-7. Prints the ``kernels`` JSON line, then ``{"ok": true, "device": ...}``.
+7. LayerNorm phase: the flagship with ``sequence.tfm.norm: layer`` and
+   ``model.qnn_alpha.norm: layer`` at full width, whose encoder takes the
+   separate-kernel branch (``fused_mha_qkv``, residual, LayerNorm,
+   ``fused_ffn``, residual, LayerNorm): train steps with every dropout on
+   (3 launches a step of each of ``fused_mha_qkv``, ``fused_ffn`` and
+   their backwards, no block tail; only selected table rows change), the
+   fp32 512-row step against the CPU (``train_reference_check``), the
+   weights served from one fold checkpoint through ``infer_main`` and
+   held against the CPU plain path, and the unfused encoder
+   (``use_pallas_attention`` / ``use_pallas_ffn`` false) on the same
+   weights: no kernel launch, probabilities within 0.02 of the kernels'.
+8. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
+   card runs it in its module: ``MultiHeadSelfAttention`` with
+   ``fuse_qkv`` off (qkv Dense, ``fused_mha``) against ``fuse_qkv`` on
+   (``fused_mha_qkv``) on the same parameters at the flagship shapes, the
+   output and the gradients of x, the bias and every parameter, in bf16
+   (one launch each of ``fused_mha`` and its backward) and in fp32.
+9. Prints the ``kernels`` JSON line (all ten kernels), then
+   ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line.  Scratch files live in a
 temporary directory under ``build/`` that is removed at exit.
@@ -52,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import importlib
 import json
 import os
 import subprocess
@@ -77,6 +97,11 @@ TRAIN_STEPS = 8  # timed steps
 CHECK_ROWS = 512  # the card-vs-CPU one-step check
 FOLD_ROWS = 40960  # the fold phase's synthetic train rows: 5 folds of 8192
 FOLD_EPOCHS = 2
+LAYERNORM_STEPS = 4  # timed steps of the LayerNorm phase, after 2 warm ones
+UNFUSED_BAND = 0.02  # the unfused encoder against the kernels: probability
+# the kernels of the RMSNorm flagship's encoder, and of the LayerNorm one's
+RMS_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_block_tail", "fused_block_tail_bwd")
+LAYER_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_ffn", "fused_ffn_bwd")
 # the one-step check, by compute dtype.  The table is stored in fp32, so
 # that one step's row update is visible (at the flagship lr a first
 # AdaGrad step moves a N(0, 1) bf16 row by under half an ulp: in bf16
@@ -317,6 +342,7 @@ def kernel_phase(cfg, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     del targs, dy, got, want
+    results.update(separate_kernel_rows(cfg, dev, g))
     results.update(fm_kernel_rows(cfg, dev, g))
     for r in results.values():
         extra = (f", dropout off {r['ms_no_dropout']:.4f} ms (plain {r['plain_ms_no_dropout']:.4f})"
@@ -327,6 +353,180 @@ def kernel_phase(cfg, dev):
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"yardstick {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms{extra}")
+    return results
+
+
+def separate_kernel_rows(cfg, dev, g):
+    """``fused_mha`` (attention on q, k, v (B, K, D)) and ``fused_ffn`` (x
+    (B*K, D), F hidden units), forward and backward, at the flagship
+    shapes in bf16 against their plain versions, with their yardsticks:
+    ``F.scaled_dot_product_attention`` with the bias as ``attn_mask`` and
+    the three-call FFN composite (``F.linear``, tanh ``F.gelu``,
+    ``F.linear``), dropout off, and their autograd backwards."""
+    import torch
+    import torch.nn.functional as F
+
+    from tossctr_tpu_torch.ops import (
+        fused_ffn,
+        fused_ffn_bwd,
+        fused_ffn_bwd_reference,
+        fused_ffn_reference,
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_reference,
+    )
+
+    bf, f32 = torch.bfloat16, torch.float32
+    B, K, D = cfg.train.batch_size, -(-cfg.sequence.top_k // 8) * 8, cfg.model.emb_dim
+    H, Fh = cfg.sequence.tfm.n_heads, cfg.sequence.tfm.ffn_hidden
+    N = B * K
+
+    def rnd(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    results = {}
+    # ---- fused_mha: q, k, v (B, K, D), bias with -1e9 on the pad columns ----
+    q, k, v = rnd(B, K, D), rnd(B, K, D), rnd(B, K, D)
+    bias = rnd(K, K, std=0.5, dtype=f32)
+    bias[:, cfg.sequence.top_k:] = -1e9
+    bias = bias.to(bf)
+    args = (q, k, v, bias, H)
+    errs = {}
+    for p in (0.0, P_DROP):
+        got = fused_mha(*args, p, DROP_SEED)
+        torch.cuda.synchronize()
+        want = fused_mha_reference(*args, p, DROP_SEED)
+        tol = bf16_tolerance(want)
+        errs[p] = check_close(f"fused_mha p={p}", got, want, tol)
+        log(f"[kernel] fused_mha B={B} K={K} D={D} H={H} bf16 p={p}: "
+            f"max_abs_err={errs[p]:.6g} (tolerance {tol:.6g}); {spread(got, want)}")
+    del got, want
+
+    def heads(t):
+        return t.view(B, K, H, D // H).transpose(1, 2)
+
+    def sdpa(q, k, v):
+        o = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=bias)
+        return o.transpose(1, 2).reshape(B, K, D)
+
+    b_ms, b_by = bound_ms(nbytes(q, k, v, bias) + nbytes(q), 4 * B * K * K * D)
+    results["fused_mha"] = dict(
+        name="fused_mha", route="cuda", source="tossctr_tpu_torch/csrc/fused_mha.cu",
+        replaces="tossctr_tpu/ops/pallas_attention.py:937",
+        max_abs_err=max(errs.values()), dropout_p=P_DROP,
+        ms=cuda_time_ms(lambda: fused_mha(*args, P_DROP, DROP_SEED)),
+        plain_ms=cuda_time_ms(lambda: fused_mha_reference(*args, P_DROP, DROP_SEED)),
+        ms_no_dropout=cuda_time_ms(lambda: fused_mha(*args)),
+        plain_ms_no_dropout=cuda_time_ms(lambda: fused_mha_reference(*args)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_time_ms(lambda: sdpa(q, k, v)),
+        library_call="F.scaled_dot_product_attention(attn_mask=bias) on head views of q, k, v "
+                     "and the merge of its heads, no dropout",
+    )
+
+    # ---- fused_mha backward, dropout on ----
+    do = rnd(B, K, D)
+    bw = (q, k, v, bias, do, H, P_DROP, DROP_SEED)
+    got = fused_mha_bwd(*bw)
+    torch.cuda.synchronize()
+    want = fused_mha_bwd_reference(*bw)
+    names = ("dq", "dk", "dv", "dbias")
+    errs = {}
+    for i, name in enumerate(names):
+        band = bf16_tolerance(want[i]) if i < 3 else WGRAD_BAND * float(want[i].abs().max())
+        errs[name] = check_close(f"fused_mha_bwd {name}", got[i], want[i], band)
+    log(f"[kernel] fused_mha_bwd bf16 p={P_DROP}: max_abs_err "
+        + ", ".join(f"{n}={e:.6g}" for n, e in errs.items())
+        + f" (dq, dk, dv: 3 bf16 ulps; dbias: {WGRAD_BAND} of its largest magnitude); "
+        + "; ".join(f"{n}: {spread(got[i], want[i])}" for i, n in enumerate(names)))
+    del got, want
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg)
+    b_ms, b_by = bound_ms(nbytes(q, k, v, bias, do) + 3 * nbytes(q) + 4 * K * K,
+                          10 * B * K * K * D)
+    results["fused_mha_bwd"] = dict(
+        name="fused_mha_bwd", route="cuda", source="tossctr_tpu_torch/csrc/fused_mha_bwd.cu",
+        replaces="tossctr_tpu/ops/pallas_attention.py:985",
+        max_abs_err=max(errs.values()), dropout_p=P_DROP,
+        ms=cuda_time_ms(lambda: fused_mha_bwd(*bw)),
+        plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(*bw)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_time_ms(
+            lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)),
+        library_call="backward of the F.scaled_dot_product_attention yardstick "
+                     "(retain_graph; no dropout, no dbias)",
+    )
+    del q, k, v, do, out, qg, kg, vg, bw
+
+    # ---- fused_ffn: x (B*K, D) ----
+    fargs = (rnd(N, D), rnd(D, Fh, std=D ** -0.5), rnd(Fh, std=0.1, dtype=f32),
+             rnd(Fh, D, std=Fh ** -0.5), rnd(D, std=0.1, dtype=f32))
+    x, w1, b1, w2, b2 = fargs
+    errs = {}
+    for p in (0.0, P_DROP):
+        got = fused_ffn(*fargs, p, DROP_SEED)
+        torch.cuda.synchronize()
+        want = fused_ffn_reference(*fargs, p, DROP_SEED)
+        tol = bf16_tolerance(want)
+        errs[p] = check_close(f"fused_ffn p={p}", got, want, tol)
+        log(f"[kernel] fused_ffn N={N} D={D} F={Fh} bf16 p={p}: "
+            f"max_abs_err={errs[p]:.6g} (tolerance {tol:.6g}); {spread(got, want)}")
+    del got, want
+
+    def ffn_composite(x, w1, b1, w2, b2):
+        h = F.gelu(F.linear(x, w1.t(), b1.to(bf)), approximate="tanh")
+        return F.linear(h, w2.t(), b2.to(bf))
+
+    b_ms, b_by = bound_ms(nbytes(*fargs) + nbytes(x), 4 * N * D * Fh)
+    results["fused_ffn"] = dict(
+        name="fused_ffn", route="cuda", source="tossctr_tpu_torch/csrc/fused_ffn.cu",
+        replaces="tossctr_tpu/ops/pallas_ffn.py:216",
+        max_abs_err=max(errs.values()), dropout_p=P_DROP,
+        ms=cuda_time_ms(lambda: fused_ffn(*fargs, P_DROP, DROP_SEED)),
+        plain_ms=cuda_time_ms(lambda: fused_ffn_reference(*fargs, P_DROP, DROP_SEED)),
+        ms_no_dropout=cuda_time_ms(lambda: fused_ffn(*fargs)),
+        plain_ms_no_dropout=cuda_time_ms(lambda: fused_ffn_reference(*fargs)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_time_ms(lambda: ffn_composite(*fargs)),
+        library_call="composite of three calls: F.linear, F.gelu(approximate='tanh'), "
+                     "F.linear, bf16, no dropout",
+    )
+
+    # ---- fused_ffn backward, dropout on ----
+    dy = rnd(N, D)
+    bw = (x, w1, b1, w2, dy, P_DROP, DROP_SEED)
+    got = fused_ffn_bwd(*bw)
+    torch.cuda.synchronize()
+    want = fused_ffn_bwd_reference(*bw)
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    errs = {}
+    for i, name in enumerate(names):
+        band = bf16_tolerance(want[i]) if i == 0 else WGRAD_BAND * float(want[i].abs().max())
+        errs[name] = check_close(f"fused_ffn_bwd {name}", got[i], want[i], band)
+    log(f"[kernel] fused_ffn_bwd bf16 p={P_DROP}: max_abs_err "
+        + ", ".join(f"{n}={e:.6g}" for n, e in errs.items())
+        + f" (dx: 3 bf16 ulps; the rest: {WGRAD_BAND} of each one's largest magnitude); "
+        + "; ".join(f"{n}: {spread(got[i], want[i])}" for i, n in enumerate(names)))
+    del got, want
+    leaves = [t.detach().requires_grad_() for t in fargs]
+    out = ffn_composite(*leaves)
+    grad_bytes = 4 * (2 * D * Fh + Fh + D)
+    b_ms, b_by = bound_ms(nbytes(x, w1, b1, w2, dy) + nbytes(x) + grad_bytes, 10 * N * D * Fh)
+    results["fused_ffn_bwd"] = dict(
+        name="fused_ffn_bwd", route="cuda", source="tossctr_tpu_torch/csrc/fused_ffn_bwd.cu",
+        replaces="tossctr_tpu/ops/pallas_ffn.py:246",
+        max_abs_err=max(errs.values()), dropout_p=P_DROP,
+        ms=cuda_time_ms(lambda: fused_ffn_bwd(*bw)),
+        plain_ms=cuda_time_ms(lambda: fused_ffn_bwd_reference(*bw)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_time_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True)),
+        library_call="backward of the three-call FFN composite (retain_graph; no dropout)",
+    )
+    del fargs, x, w1, b1, w2, b2, dy, bw, leaves, out
     return results
 
 
@@ -455,7 +655,7 @@ def check_submission(path, cache):
     return probs
 
 
-def reference_check(cfg, cache, dev, rows=512):
+def reference_check(cfg, cache, dev, rows=512, tag="check"):
     """One fold on the card (kernels) against the same fold on the CPU
     (plain PyTorch path) on one batch.  Both run bf16; their bf16
     rounding differs, so probabilities are held to the CPU tests' band."""
@@ -477,7 +677,7 @@ def reference_check(cfg, cache, dev, rows=512):
             torch.cuda.empty_cache()
     dz = float(np.abs(out["card"][0] - out["cpu"][0]).max())
     dp = float(np.abs(out["card"][1] - out["cpu"][1]).max())
-    log(f"[check] fold 0 on {rows} rows, card kernels vs CPU plain path: "
+    log(f"[{tag}] fold 0 on {rows} rows, card kernels vs CPU plain path: "
         f"max |dlogit|={dz:.5g}, max |dprob|={dp:.5g} (band 0.02)")
     if not (np.isfinite(out["card"][0]).all() and dp < 0.02):
         raise AssertionError("card output disagrees with the CPU plain path")
@@ -567,11 +767,40 @@ def trainer_for(cfg, model):
     return state, step
 
 
-def training_phase(cfg, cache, dev):
-    """Full-width train steps over rotating batches: the slice's main path."""
+def first_step(cfg, model, state, step, batch, tag):
+    """The first train step, checked: it changes only table rows the batch
+    selected, never the pad row.  -> (state, loss)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    table, accum = model.dare.emb_tables, state.table_opt["emb_tables"].accum
+    sel = selected_ids(model, batch)
+    before, acc_before = table.detach().clone(), accum.clone()
+    t0 = time.time()
+    state, loss = step(state, batch)
+    first = float(loss)
+    log(f"[{tag}] step 1: loss {first:.6f}, {time.time() - t0:.2f} s (first call)")
+    changed = torch.nonzero((table != before).any(dim=1))[:, 0]
+    acc_changed = torch.nonzero((accum != acc_before).any(dim=1))[:, 0]
+    pad = cfg.sequence.pad_id
+    touched = torch.unique(sel)
+    touched = touched[touched != pad]
+    outside = changed[~torch.isin(changed, touched)]
+    pad_moved = bool((table[pad] != before[pad]).any() or (accum[pad] != acc_before[pad]).any())
+    log(f"[{tag}] step 1: the batch selected {touched.numel()} distinct non-pad ids; "
+        f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulator changed, "
+        f"{int((~torch.isin(acc_changed, touched)).sum())} of them not selected; "
+        f"{changed.numel()} bf16 table rows changed, {outside.numel()} of them not selected; "
+        f"pad row changed: {pad_moved}")
+    if (acc_changed.numel() == 0 or outside.numel() or pad_moved
+            or not bool(torch.isin(acc_changed, touched).all())):
+        raise AssertionError("the table update touched rows it should not have")
+    return state, first
+
+
+def training_phase(cfg, cache, dev):
+    """Full-width train steps over rotating batches: the RMSNorm flagship's
+    training path."""
+    import torch
 
     from tossctr_tpu_torch.data import BatchIterator
     from tossctr_tpu_torch.models import init_params
@@ -589,31 +818,8 @@ def training_phase(cfg, cache, dev):
     log(f"[train] model {n_par / 1e6:.1f}M parameters, {len(batches)} batches of "
         f"{cfg.train.batch_size} on the card, set-up {time.time() - t0:.1f} s")
 
-    # one step changes only table rows the batch selected, never the pad row
-    table, accum = model.dare.emb_tables, state.table_opt["emb_tables"].accum
-    sel = selected_ids(model, batches[0])
-    before, acc_before = table.detach().clone(), accum.clone()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    state, loss = step(state, batches[0])
-    first = float(loss)
-    log(f"[train] step 1: loss {first:.6f}, {time.time() - t0:.2f} s (first call)")
-    changed = torch.nonzero((table != before).any(dim=1))[:, 0]
-    acc_changed = torch.nonzero((accum != acc_before).any(dim=1))[:, 0]
-    pad = cfg.sequence.pad_id
-    touched = torch.unique(sel)
-    touched = touched[touched != pad]
-    outside = changed[~torch.isin(changed, touched)]
-    pad_moved = bool((table[pad] != before[pad]).any() or (accum[pad] != acc_before[pad]).any())
-    log(f"[train] step 1: the batch selected {touched.numel()} distinct non-pad ids; "
-        f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulator changed, "
-        f"{int((~torch.isin(acc_changed, touched)).sum())} of them not selected; "
-        f"{changed.numel()} bf16 table rows changed, {outside.numel()} of them not selected; "
-        f"pad row changed: {pad_moved}")
-    if (acc_changed.numel() == 0 or outside.numel() or pad_moved
-            or not bool(torch.isin(acc_changed, touched).all())):
-        raise AssertionError("the table update touched rows it should not have")
-    del before, acc_before
+    state, first = first_step(cfg, model, state, step, batches[0], "train")
     state, loss = step(state, batches[1 % len(batches)])  # warm
     float(loss)
 
@@ -633,7 +839,7 @@ def training_phase(cfg, cache, dev):
         f"{TRAIN_STEPS * cfg.train.batch_size / wall:.1f} examples/s (B={cfg.train.batch_size}, "
         f"no claim), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"[train] losses {[round(x, 6) for x in losses]}")
-    expected = {k: 0 if k.startswith("fm_cross") else 3 * TRAIN_STEPS for k in launches}
+    expected = {k: 3 * TRAIN_STEPS if k in RMS_ENCODER else 0 for k in launches}
     log(f"[train] launches during the {TRAIN_STEPS} steps: {launches}, expected {expected} "
         f"(3 layers a step; the QNN takes its plain path without model.extra.use_pallas_fm)")
     if not all(np.isfinite(losses)) or not np.isfinite(first):
@@ -641,27 +847,40 @@ def training_phase(cfg, cache, dev):
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} != {expected}")
 
+    profile_step(state, step, batches[0], "train")
+    del state, step, model, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(state, step, batch, tag):
+    """One train step under torch.profiler: device time by kernel, the
+    device's busy share of the step's wall time, and the port's kernels'
+    share of the device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss = step(state, batches[0])
+        state, loss = step(state, batch)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     events = prof.key_averages()
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in dev_events) / 1e6
-    ours = ("mha_qkv_fwd", "block_tail_fwd", "mha_qkv_bwd", "block_tail_bwd", "reduce_partials")
+    ours = ("mha_qkv_fwd", "block_tail_fwd", "mha_qkv_bwd", "block_tail_bwd", "ffn_fwd",
+            "ffn_bwd", "mha_fwd", "mha_bwd", "fm_fwd", "fm_bwd", "fm_dv", "reduce_partials")
     ours_s = sum(e.self_device_time_total for e in dev_events
                  if any(k in e.key for k in ours)) / 1e6
     table_txt = events.table(sort_by="cuda_time_total", row_limit=30, max_name_column_width=60)
-    log("[profile] one train step, by device time:")
+    log(f"[profile] one {tag} step, by device time:")
     for line in table_txt.splitlines():
         log("  " + line)
-    log(f"[profile] train step: device busy {1e3 * device_s:.3f} ms of {1e3 * prof_wall:.3f} ms "
+    log(f"[profile] {tag} step: device busy {1e3 * device_s:.3f} ms of {1e3 * prof_wall:.3f} ms "
         f"wall = {device_s / prof_wall:.1%} (under the profiler); the port's kernels "
         f"{1e3 * ours_s:.3f} ms = {ours_s / max(device_s, 1e-12):.1%} of device time")
-    del state, step, model, batches
-    torch.cuda.empty_cache()
-    return launches
+    return state
 
 
 def fold_phase(tmp, test_man, dev):
@@ -756,7 +975,8 @@ def fold_phase(tmp, test_man, dev):
     want = {"fm_cross_pallas": steps + val_batches, "fm_cross_pallas_bwd": steps}
     for k in counts:
         if k not in want:
-            want[k] = n_layers * (steps if k.endswith("_bwd") else steps + val_batches)
+            want[k] = (n_layers * (steps if k.endswith("_bwd") else steps + val_batches)
+                       if k in RMS_ENCODER else 0)
     log(f"[fold] train_main: {len(tr)} train rows, {len(va)} validation rows, {steps} steps and "
         f"{val_batches} validation batches in {wall:.2f} s (under a device-only profiler); "
         f"launches {counts}, expected {want}")
@@ -821,8 +1041,8 @@ def fold_phase(tmp, test_man, dev):
     path = infer_main(cfg, device=dev)
     serve_wall = time.time() - t0
     served = launch_counts()
-    want = {k: 0 if k.endswith("_bwd") else n_batches * (1 if k.startswith("fm") else n_layers)
-            for k in served}
+    want = {k: 0 if k.endswith("_bwd") or not (k in RMS_ENCODER or k.startswith("fm"))
+            else n_batches * (1 if k.startswith("fm") else n_layers) for k in served}
     log(f"[fold] infer_main served the fold's checkpoint: {path} in {serve_wall:.2f} s; "
         f"launches {served}, expected {want}")
     if served != want:
@@ -834,18 +1054,214 @@ def fold_phase(tmp, test_man, dev):
     return counts, served
 
 
+def layernorm_config_dict():
+    """The flagship config mapping with LayerNorm in the encoder and the
+    QNN-alpha head (the reference's ``norm: layer`` option)."""
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+
+    d = flagship_config_dict()
+    d["sequence"]["tfm"]["norm"] = "layer"
+    d["model"]["qnn_alpha"]["norm"] = "layer"
+    return d
+
+
+def layernorm_phase(tmp, test_man, train_cache, dev):
+    """The LayerNorm flagship at full width: train steps (every dropout on)
+    through the separate-kernel encoder, its fp32 512-row step against the
+    CPU, its weights served from one fold checkpoint through
+    ``infer_main`` and held against the CPU plain path, and the unfused
+    encoder on the same weights.  -> (launches of the timed steps,
+    launches of infer_main)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.data import BatchIterator, ShardCache
+    from tossctr_tpu_torch.eval.calibration import Calibrator, TemperatureScaler
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.models import build_model, init_params
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.train.checkpoint import save_fold_checkpoint
+
+    d = layernorm_config_dict()
+    d["exp_name"] = "chip_layernorm"
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    d["data"]["manifest_test"] = test_man
+    cfg = Config.from_dict(copy.deepcopy(d))
+    B, n_layers = cfg.train.batch_size, cfg.sequence.tfm.n_layers
+    t0 = time.time()
+    model = init_params(build_model(cfg, train_cache.dims, dev), seed=2025)
+    state, step = trainer_for(cfg, model)
+    loader = BatchIterator(train_cache, batch_size=B, train=True, shuffle=True, seed=cfg.seed,
+                           drop_last=cfg.train.drop_partial_batch)
+    batches = [to_device(b, dev) for b in loader]
+    torch.cuda.synchronize()
+    log(f"[layernorm] sequence.tfm.norm layer, model.qnn_alpha.norm layer: "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters, "
+        f"{len(batches)} batches of {B}, set-up {time.time() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    state, first = first_step(cfg, model, state, step, batches[0], "layernorm")
+    state, loss = step(state, batches[1 % len(batches)])  # warm
+    float(loss)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(LAYERNORM_STEPS):
+        state, loss = step(state, batches[(i + 2) % len(batches)])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = [float(x) for x in losses]
+    expected = {k: n_layers * LAYERNORM_STEPS if k in LAYER_ENCODER else 0 for k in launches}
+    log(f"[layernorm] {LAYERNORM_STEPS} steps: {1e3 * wall / LAYERNORM_STEPS:.2f} ms/step, "
+        f"{LAYERNORM_STEPS * B / wall:.1f} examples/s (no claim), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses {[round(x, 6) for x in losses]}")
+    log(f"[layernorm] launches during the {LAYERNORM_STEPS} steps: {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and np.isfinite(first)):
+        raise AssertionError(f"non-finite LayerNorm training loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"LayerNorm kernel launches {launches} != {expected}")
+    profile_step(state, step, batches[0], "layernorm")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    train_reference_check(layernorm_config_dict(), train_cache, dev, "none", tag="layernorm")
+
+    # ---- the trained weights served from one fold checkpoint ----
+    cal = Calibrator("temperature")
+    cal.temp_scaler = TemperatureScaler(T=1.1)
+    save_fold_checkpoint(cfg.exp_dir(), 0, state_dict=model.state_dict(), cfg_dict=cfg.to_dict(),
+                         best_score=0.4, epoch=1, global_step=LAYERNORM_STEPS + 2,
+                         calibrator=cal)
+    cache = ShardCache(test_man)
+    n_batches = -(-len(cache) // B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path = infer_main(cfg, device=dev)
+    serve_wall = time.time() - t0
+    served = launch_counts()
+    want = {k: n_layers * n_batches if k in LAYER_ENCODER and not k.endswith("_bwd") else 0
+            for k in served}
+    log(f"[layernorm] infer_main served the fold: {path} in {serve_wall:.2f} s, "
+        f"{len(cache) / serve_wall:.1f} examples/s end to end; launches {served}, expected {want}")
+    if served != want:
+        raise AssertionError(f"LayerNorm serving launches {served} != {want}")
+    probs = check_submission(path, cache)
+    log(f"[layernorm] submission: {len(probs)} rows, probabilities in [{probs.min():.6f}, "
+        f"{probs.max():.6f}], mean {probs.mean():.6f}")
+    reference_check(cfg, cache, dev, tag="layernorm")
+
+    # ---- the unfused encoder on the same weights ----
+    d["model"].update(use_pallas_attention=False, use_pallas_ffn=False)
+    unfused = build_model(Config.from_dict(d), cache.dims, dev)
+    unfused.load_state_dict(model.state_dict())
+    batch = next(iter(BatchIterator(cache, batch_size=B)))
+    tb = {k: torch.from_numpy(batch[k]).to(dev) for k in ("X_num", "X_mask", "X_cat", "seq")}
+    with torch.inference_mode():
+        zk, pk, _ = model(tb)
+        reset_launch_counts()
+        zu, pu, _ = unfused(tb)
+        torch.cuda.synchronize()
+        unfused_launches = launch_counts()
+    dz = float((zu - zk).abs().max())
+    dp = float((pu - pk).abs().max())
+    log(f"[layernorm] unfused encoder (use_pallas_attention / use_pallas_ffn false) on the same "
+        f"weights, one batch of {B}: launches {unfused_launches}; against the kernel path "
+        f"max |dlogit| {dz:.5g}, max |dprob| {dp:.5g} (band {UNFUSED_BAND})")
+    if any(unfused_launches.values()) or not (torch.isfinite(zu).all() and dp < UNFUSED_BAND):
+        raise AssertionError("the unfused encoder launched a kernel or left the kernels' band")
+    del model, unfused, cache
+    torch.cuda.empty_cache()
+    return launches, served
+
+
+def mha_module_check(cfg, dev):
+    """``MultiHeadSelfAttention`` with ``fuse_qkv`` off (the qkv Dense, a
+    split, ``fused_mha``) against ``fuse_qkv`` on (``fused_mha_qkv``) on the
+    same parameters at the flagship's attention shapes, dropout off: the
+    output and the gradients of x, the bias and every parameter.  fp32 is
+    held to 1e-4 of each one's largest magnitude (the same arithmetic in
+    another order); bf16 to a norm-relative 5e-2, since the Dense rounds
+    the product and adds its bias in bf16 where the fused kernel adds it
+    in fp32 before one rounding.  -> the launches of the bf16 pass."""
+    import torch
+
+    from tossctr_tpu_torch.models.layers import MultiHeadSelfAttention
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    B, K, D = cfg.train.batch_size, -(-cfg.sequence.top_k // 8) * 8, cfg.model.emb_dim
+    H = cfg.sequence.tfm.n_heads
+    g = torch.Generator(device=dev).manual_seed(5)
+    counts = None
+    for dtype in (torch.bfloat16, torch.float32):
+        fused = MultiHeadSelfAttention(D, H, use_pallas=True, fuse_qkv=True).to(dev)
+        with torch.no_grad():
+            for name, p in fused.named_parameters():
+                std = D ** -0.5 if name.endswith("kernel") else 0.1
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * std)
+        split = MultiHeadSelfAttention(D, H, use_pallas=True, fuse_qkv=False).to(dev)
+        split.load_state_dict(fused.state_dict())
+        x = torch.randn(B, K, D, generator=g, device=dev).to(dtype)
+        bias = torch.randn(K, K, generator=g, device=dev) * 0.5
+        bias[:, cfg.sequence.top_k:] = -1e9
+        bias = bias.to(dtype)
+        go = torch.randn(B, K, D, generator=g, device=dev).to(dtype)
+        grads = []
+        for m in (fused, split):
+            xl, bl = x.clone().requires_grad_(), bias.clone().requires_grad_()
+            if m is split and dtype == torch.bfloat16:
+                reset_launch_counts()
+            out = m(xl, bl)
+            out.backward(go)
+            torch.cuda.synchronize()
+            if m is split and dtype == torch.bfloat16:
+                counts = launch_counts()
+            grads.append({"out": out.detach(), "dx": xl.grad, "dbias": bl.grad,
+                          **{f"d{n}": p.grad for n, p in m.named_parameters()}})
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        worst = {}
+        for name, want in grads[0].items():
+            got = grads[1][name].float()
+            want = want.float()
+            if dtype == torch.float32:
+                err, band = float((got - want).abs().max()), 1e-4 * float(want.abs().max())
+            else:
+                err, band = float((got - want).norm() / want.norm()), 5e-2
+            worst[name] = err
+            if not err <= band:
+                raise AssertionError(f"fused_mha module {tag} {name}: {err} > {band}")
+        log(f"[module] MultiHeadSelfAttention fuse_qkv off vs on, B={B} K={K} D={D} H={H} {tag}: "
+            + ", ".join(f"{n} {e:.3g}" for n, e in worst.items())
+            + (" (max abs err; band 1e-4 of each one's largest)" if dtype == torch.float32
+               else " (norm-relative; band 5e-2)"))
+        del fused, split, x, bias, go, grads
+    want = {k: 1 if k in ("fused_mha", "fused_mha_bwd") else 0 for k in counts}
+    log(f"[module] launches of the bf16 fuse_qkv-off pass: {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"module launches {counts} != {want}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
-    """The four kernels' wrappers swapped for their plain PyTorch versions,
-    which then run on the card: a witness that splits the card's rounding
-    between the kernels and the rest of the step."""
-    from tossctr_tpu_torch.ops import fused_attention as fa
-    from tossctr_tpu_torch.ops import fused_ffn as ff
+    """The encoder kernels' wrappers swapped for their plain PyTorch
+    versions, which then run on the card: a witness that splits the card's
+    rounding between the kernels and the rest of the step."""
+    # the modules, not the package's functions of the same name
+    fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+    ff = importlib.import_module("tossctr_tpu_torch.ops.fused_ffn")
 
     swaps = [(fa, "fused_mha_qkv_fwd", fa.fused_mha_qkv_reference),
              (fa, "fused_mha_qkv_bwd", fa.fused_mha_qkv_bwd_reference),
+             (fa, "fused_mha_fwd", fa.fused_mha_reference),
+             (fa, "fused_mha_bwd", fa.fused_mha_bwd_reference),
              (ff, "fused_block_tail_fwd", ff.fused_block_tail_reference),
-             (ff, "fused_block_tail_bwd", ff.fused_block_tail_bwd_reference)]
+             (ff, "fused_block_tail_bwd", ff.fused_block_tail_bwd_reference),
+             (ff, "fused_ffn_fwd", ff.fused_ffn_reference),
+             (ff, "fused_ffn_bwd", ff.fused_ffn_bwd_reference)]
     saved = [getattr(m, n) for m, n, _ in swaps]
     try:
         for m, n, plain in swaps:
@@ -933,7 +1349,7 @@ def _compare_steps(c, r):
     return got
 
 
-def train_reference_check(d, cache, dev, amp):
+def train_reference_check(d, cache, dev, amp, tag="check"):
     """One step from one state on a CHECK_ROWS-row batch, in the compute
     dtype of ``amp``, kernel dropouts on (the counter-hash masks are the
     same everywhere) and the other dropouts off: the card's step against
@@ -986,7 +1402,7 @@ def train_reference_check(d, cache, dev, amp):
     def rows_of(mask):
         return {k: v[mask.numpy()] for k, v in batch.items()}
 
-    log(f"[check] amp={amp} global gradient norm before the clip (card, no dropout): whole "
+    log(f"[{tag}] amp={amp} global gradient norm before the clip (card, no dropout): whole "
         f"batch {_grad_norm(cfg, card_model, init, batch, dev):.6g}; its "
         f"{int(nonempty.sum())} rows with a non-empty history "
         f"{_grad_norm(cfg, card_model, init, rows_of(nonempty), dev):.6g} (the clip is at "
@@ -1012,7 +1428,7 @@ def train_reference_check(d, cache, dev, amp):
                 recs[key] = _step_record(cfg, m, init, rows_of(rows), x, ids, variant)
         ra, rb = (recs[(side, tuple(rows.tolist()))] for side in (a, b))
         found[label] = g = _compare_steps(ra, rb)
-        log(f"[check] amp={amp} {label}: {a} vs {b} ({int(rows.sum())} rows, "
+        log(f"[{tag}] amp={amp} {label}: {a} vs {b} ({int(rows.sum())} rows, "
             f"{time.time() - t0:.1f} s): loss {ra['loss']:.6f} vs {rb['loss']:.6f} "
             f"(rel {g['loss']:.3g}); dense gradients |diff|/|grad| {g['grads']:.3g}, worst "
             "tensors " + ", ".join(f"{n} {e:.3g}" for n, e in g["worst"])
@@ -1029,7 +1445,7 @@ def train_reference_check(d, cache, dev, amp):
             got[f"{pair} {k}"] = found[pair][k]
             if not found[pair][k] <= band:
                 failed.append(f"{pair} {k}")
-    log(f"[check] one amp={amp} train step on {CHECK_ROWS} rows: selected ids shared "
+    log(f"[{tag}] one amp={amp} train step on {CHECK_ROWS} rows: selected ids shared "
         f"{got['select']:.4%} (band {bands['select']}), rows with the same ordered selection "
         f"{got['same_order']:.4%} (band {bands['same_order']}); held: "
         + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b})"
@@ -1074,6 +1490,7 @@ def main() -> int:
     base_cfg = Config.from_dict(copy.deepcopy(d))
     kernels = kernel_phase(base_cfg, dev)
     torch.cuda.empty_cache()
+    module_launches = mha_module_check(base_cfg, dev)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as tmp:
@@ -1099,7 +1516,7 @@ def main() -> int:
         want = N_FOLDS * n_batches * cfg.sequence.tfm.n_layers
         log(f"[serve] infer_main wrote {path} in {wall:.2f} s (checkpoint loading included): "
             f"{len(cache) / wall:.1f} examples/s end to end")
-        expected = {k: (0 if k.endswith("_bwd") or k.startswith("fm_cross") else want)
+        expected = {k: want if k in RMS_ENCODER and not k.endswith("_bwd") else 0
                     for k in counts}
         log(f"[serve] launches during infer_main: {counts}, expected {want} of each encoder "
             f"forward kernel ({N_FOLDS} folds x {n_batches} batches x "
@@ -1124,6 +1541,9 @@ def main() -> int:
         train_launches = training_phase(base_cfg, train_cache, dev)
         for amp in CHECK_BANDS:
             train_reference_check(flagship_config_dict(), train_cache, dev, amp)
+        t0 = time.time()
+        layer_launches, layer_served = layernorm_phase(tmp, man, train_cache, dev)
+        layer_wall = time.time() - t0
         del train_cache
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -1131,15 +1551,24 @@ def main() -> int:
         fold_wall = time.time() - t0
 
     for name, r in kernels.items():
-        # each kernel's launches on the path that is its own: the encoder
-        # kernels' in the training phase, the FM pair's in the fold phase
-        fm = name.startswith("fm_cross")
-        r["launches"] = fold_launches[name] if fm else train_launches[name]
-        r["launches_serving"] = fold_served[name] if fm else counts[name]
+        # each kernel's launches on the path that is its own: the RMSNorm
+        # encoder kernels' in the training phase, fused_ffn's in the
+        # LayerNorm phase, fused_mha's in its module check (no config serves
+        # it: its serving count is the serving phase's, read there), the FM
+        # pair's in the fold phase
+        if name.startswith("fm_cross"):
+            r["launches"], r["launches_serving"] = fold_launches[name], fold_served[name]
+        elif name.startswith("fused_ffn"):
+            r["launches"], r["launches_serving"] = layer_launches[name], layer_served[name]
+        elif name.startswith("fused_mha") and not name.startswith("fused_mha_qkv"):
+            r["launches"], r["launches_serving"] = module_launches[name], counts[name]
+        else:
+            r["launches"], r["launches_serving"] = train_launches[name], counts[name]
         r["launches_fold"] = fold_launches[name]
+        r["launches_layernorm"] = layer_launches[name]
     total = time.time() - T_START
-    log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s of it "
-        f"({total - fold_wall:.1f} s without)")
+    log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s and the "
+        f"LayerNorm phase {layer_wall:.1f} s of it")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

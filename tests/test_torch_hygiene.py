@@ -48,7 +48,8 @@ def test_port_import_and_device_hygiene(tmp_path):
 
     def importing_every_module_loads_none_of_them():
         mods = _modules()
-        for m in ("ops.fused_attention", "ops.fm_cross", "train.trainer", "train.cv_split",
+        for m in ("ops.fused_attention", "ops.fused_ffn", "ops.fm_cross", "train.trainer",
+                  "train.cv_split",
                   "train.__main__", "infer.__main__"):
             assert f"tossctr_tpu_torch.{m}" in mods, m
         r = _run(f"""

@@ -31,22 +31,21 @@
 // and y once; the 104 KB of bf16 weights are re-read from L2 per tile.
 // Products run on the CUDA cores in fp32 with 4x4 register tiles; the
 // tensor cores are the next step for speed.
-#include "common.cuh"
+#include "ffn_core.cuh"
 
 namespace {
 
 using tossctr::align4;
 using tossctr::Dropout;
 using tossctr::from_f;
-using tossctr::gelu_tanh;
 using tossctr::load4;
 using tossctr::round_t;
 using tossctr::to_f;
+using tossctr::ffn::kChunk;
+using tossctr::ffn::kRows;
+using tossctr::ffn::kThreads;
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;   // rows per block
-constexpr int kChunk = 64;  // hidden columns per chunk
 constexpr float kEps = 1e-6f;
 
 struct Layout {
@@ -158,69 +157,10 @@ block_tail_fwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
   __syncthreads();
   rms_rows<T>(y1_s, wn1_s, D, AS);  // y1 = norm1(r1)
 
-  // ---- FFN over hidden chunks; ff accumulates in registers ----
-  // each of the first out_tiles threads owns one 4x4 tile of the (64, D)
-  // FFN output for the whole chunk walk (the launch requires D <= 64)
+  // ---- FFN over hidden chunks; each of the first out_tiles threads
+  // keeps its 4x4 tile of the (64, D) FFN output in registers ----
   float ff[4][4] = {};
-  for (int f0 = 0; f0 < F; f0 += kChunk) {
-    const int fc = min(kChunk, F - f0);
-    __syncthreads();  // y1 ready / previous chunk done with wa, wb, g_s
-    for (int i = tid; i < D * kChunk; i += kThreads) {
-      const int d = i / kChunk, c = i - d * kChunk;
-      wa[i] = c < fc ? to_f<T>(w1[(size_t)d * F + f0 + c]) : 0.f;
-    }
-    for (int i = tid; i < kChunk * D; i += kThreads) {
-      const int f = i / D;
-      wb[i] = f < fc ? to_f<T>(w2[(size_t)(f0 + f) * D + (i - f * D)]) : 0.f;
-    }
-    __syncthreads();
-    // g = round_T(gelu(y1 @ W1[:, chunk] + b1[chunk]) * keep)
-    const int HT = kChunk / 4;
-    for (int t = tid; t < (kRows / 4) * HT; t += kThreads) {
-      const int r0 = (t / HT) * 4, c0 = (t % HT) * 4;
-      float acc[4][4] = {};
-      for (int d = 0; d < D; ++d) {
-        float w[4], yv[4];
-        load4(wa + d * kChunk + c0, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) yv[i] = y1_s[(r0 + i) * AS + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(yv[i], w[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + j;
-        const float bj = c < fc ? b1_s[f0 + c] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float g = 0.f;
-          if (c < fc) {
-            g = gelu_tanh(__fadd_rn(acc[i][j], bj));
-            if (drop.on()) g = __fmul_rn(g, drop.ffn(row0 + r0 + i, f0 + c));
-            g = round_t<T>(g);
-          }
-          g_s[(r0 + i) * GS + c] = g;
-        }
-      }
-    }
-    __syncthreads();
-    // ff += g @ W2[chunk, :]
-    if (tid < out_tiles) {
-      const int r0 = (tid / CT) * 4, c0 = (tid % CT) * 4;
-      for (int f = 0; f < fc; ++f) {
-        float w[4], gv[4];
-        load4(wb + f * D + c0, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) gv[i] = g_s[(r0 + i) * GS + f];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) ff[i][j] = fmaf(gv[i], w[j], ff[i][j]);
-      }
-    }
-  }
+  tossctr::ffn::forward_walk<T>(y1_s, AS, w1, w2, b1_s, D, F, row0, drop, wa, wb, g_s, GS, ff);
 
   // ---- r2 = round_T(y1 + round_T(ff + b2)) ----
   if (tid < out_tiles) {

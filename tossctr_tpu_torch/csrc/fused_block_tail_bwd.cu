@@ -39,23 +39,23 @@
 // (common.cuh reduce_partials) adds the partials in block order, so the
 // result repeats bit for bit (fp32 atomics would not).  Products run on
 // the CUDA cores in fp32; the tensor cores are the next step for speed.
-#include "common.cuh"
+#include "ffn_core.cuh"
 
 namespace {
 
 using tossctr::align4;
 using tossctr::Dropout;
 using tossctr::from_f;
-using tossctr::gelu_tanh;
 using tossctr::gelu_tanh_grad;
-using tossctr::load4;
 using tossctr::round_t;
 using tossctr::to_f;
+using tossctr::ffn::add_tile;
+using tossctr::ffn::kChunk;
+using tossctr::ffn::kRows;
+using tossctr::ffn::kThreads;
+using tossctr::ffn::tile_nn;
 
-constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;   // rows per tile
-constexpr int kChunk = 64;  // hidden columns per chunk
 constexpr float kEps = 1e-6f;
 
 struct Layout {
@@ -98,34 +98,6 @@ struct Partials {  // offsets in one block's partial buffer, in floats
     total = dwn2 + D;
   }
 };
-
-// acc (4x4 tile at rows r0.., cols c0..) += a[r][k] * b[k][c] over k < n,
-// a with row stride as, b with row stride bs (16-byte aligned rows)
-__device__ __forceinline__ void tile_nn(float acc[4][4], const float* a, int as, const float* b,
-                                        int bs, int r0, int c0, int n) {
-  for (int k = 0; k < n; ++k) {
-    float av[4], bv[4];
-    load4(b + k * bs + c0, bv);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(r0 + i) * as + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// owner-thread read-modify-write of a 4x4 tile of a partial sum (row stride ld)
-__device__ __forceinline__ void add_tile(float* p, int ld, int r0, int c0, int nr, int nc,
-                                         const float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (r0 + i >= nr) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c0 + j < nc) p[(r0 + i) * ld + c0 + j] += acc[i][j];
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -218,44 +190,8 @@ block_tail_bwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
 
     // ---- forward FFN: ff accumulates in registers over the chunks ----
     float acc1[4][4] = {};  // ff here, dy1's FFN term in the backward pass
-    for (int f0 = 0; f0 < F; f0 += kChunk) {
-      const int fc = min(kChunk, F - f0);
-      __syncthreads();  // y1 ready / the previous chunk is done with wa, wb, h_s
-      for (int i = tid; i < D * kChunk; i += kThreads) {
-        const int d = i / kChunk, c = i - d * kChunk;
-        wa[i] = c < fc ? to_f<T>(w1[(size_t)d * F + f0 + c]) : 0.f;
-      }
-      for (int i = tid; i < kChunk * D; i += kThreads) {
-        const int f = i / D;
-        wb[i] = f < fc ? to_f<T>(w2[(size_t)(f0 + f) * D + (i - f * D)]) : 0.f;
-      }
-      __syncthreads();
-      for (int t = tid; t < (kRows / 4) * HT; t += kThreads) {
-        const int r0 = (t / HT) * 4, c0 = (t % HT) * 4;
-        float acc[4][4] = {};
-        tile_nn(acc, y1_s, AS, wa, kChunk, r0, c0, D);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = c0 + j;
-          const float bj = c < fc ? b1_s[f0 + c] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float g = 0.f;
-            if (c < fc) {
-              g = gelu_tanh(__fadd_rn(acc[i][j], bj));
-              if (drop.on()) g = __fmul_rn(g, drop.ffn(row0 + r0 + i, f0 + c));
-              g = round_t<T>(g);
-            }
-            h_s[(r0 + i) * AS + c] = g;
-          }
-        }
-      }
-      __syncthreads();
-      if (tid < out_tiles) {
-        const int r0 = (tid / CT) * 4, c0 = (tid % CT) * 4;
-        tile_nn(acc1, h_s, AS, wb, D, r0, c0, fc);
-      }
-    }
+    tossctr::ffn::forward_walk<T>(y1_s, AS, w1, w2, b1_s, D, F, row0, drop, wa, wb, h_s, AS,
+                                  acc1);
     // ---- r2 = round_T(y1 + round_T(ff + b2)) ----
     if (tid < out_tiles) {
       const int r0 = (tid / CT) * 4, c0 = (tid % CT) * 4;
@@ -313,57 +249,12 @@ block_tail_bwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
     for (int f0 = 0; f0 < F; f0 += kChunk) {
       const int fc = min(kChunk, F - f0);
       __syncthreads();  // the previous chunk is done with wa, wb, g_s, h_s
-      for (int i = tid; i < D * kChunk; i += kThreads) {
-        const int d = i / kChunk, c = i - d * kChunk;
-        wa[i] = c < fc ? to_f<T>(w1[(size_t)d * F + f0 + c]) : 0.f;
-      }
-      for (int i = tid; i < kChunk * D; i += kThreads) {
-        const int f = i / D;
-        wb[i] = f < fc ? to_f<T>(w2[(size_t)(f0 + f) * D + (i - f * D)]) : 0.f;
-      }
+      tossctr::ffn::stage_chunk<T>(w1, w2, D, F, f0, fc, wa, wb);
       __syncthreads();
       // h = y1 @ W1c + b1c (fp32) into h_s, g = round_T(gelu(h) * keep) into g_s
-      for (int t = tid; t < (kRows / 4) * HT; t += kThreads) {
-        const int r0 = (t / HT) * 4, c0 = (t % HT) * 4;
-        float acc[4][4] = {};
-        tile_nn(acc, y1_s, AS, wa, kChunk, r0, c0, D);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = c0 + j;
-          const float bj = c < fc ? b1_s[f0 + c] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float hv = __fadd_rn(acc[i][j], bj);
-            float g = 0.f;
-            if (c < fc) {
-              g = gelu_tanh(hv);
-              if (drop.on()) g = __fmul_rn(g, drop.ffn(row0 + r0 + i, f0 + c));
-              g = round_t<T>(g);
-            }
-            h_s[(r0 + i) * AS + c] = hv;
-            g_s[(r0 + i) * AS + c] = g;
-          }
-        }
-      }
+      tossctr::ffn::hidden_chunk<T, true>(y1_s, AS, wa, b1_s, D, f0, fc, row0, drop, h_s, g_s, AS);
       __syncthreads();
-      // dW2c += g^T round_T(dr2): tiles of (kChunk, D)
-      for (int t = tid; t < HT * CT; t += kThreads) {
-        const int f0t = (t / CT) * 4, c0 = (t % CT) * 4;
-        float acc[4][4] = {};
-        for (int r = 0; r < kRows; ++r) {
-          float gv[4], dv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            gv[i] = g_s[r * AS + f0t + i];
-            dv[i] = round_t<T>(r2_s[r * AS + c0 + i]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gv[i], dv[j], acc[i][j]);
-        }
-        add_tile(part + P.dw2 + (size_t)f0 * D, D, f0t, c0, fc, D, acc);
-      }
+      tossctr::ffn::dw2_chunk<T, true>(g_s, r2_s, AS, D, fc, part + P.dw2 + (size_t)f0 * D);
       // dh = (round_T(dr2) @ W2c^T) * keep * gelu'(h), in place of h
       for (int t = tid; t < (kRows / 4) * HT; t += kThreads) {
         const int r0 = (t / HT) * 4, c0 = (t % HT) * 4;
@@ -392,29 +283,7 @@ block_tail_bwd_kernel(const T* __restrict__ x, const T* __restrict__ o,
           }
       }
       __syncthreads();
-      // dW1c += y1^T round_T(dh): tiles of (D, kChunk); db1c += dh
-      for (int t = tid; t < CT * HT; t += kThreads) {
-        const int d0 = (t / HT) * 4, c0 = (t % HT) * 4;
-        float acc[4][4] = {};
-        for (int r = 0; r < kRows; ++r) {
-          float yv[4], hv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            yv[i] = y1_s[r * AS + d0 + i];
-            hv[i] = round_t<T>(h_s[r * AS + c0 + i]);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(yv[i], hv[j], acc[i][j]);
-        }
-        add_tile(part + P.dw1 + f0, F, d0, c0, D, fc, acc);
-      }
-      if (tid < fc) {
-        float s = 0.f;
-        for (int r = 0; r < kRows; ++r) s += h_s[r * AS + tid];
-        part[P.db1 + f0 + tid] += s;
-      }
+      tossctr::ffn::dw1_chunk<T>(y1_s, h_s, AS, D, F, fc, part + P.dw1 + f0, part + P.db1 + f0);
       // dy1's FFN term += round_T(dh) @ W1c^T, in registers
       if (tid < out_tiles) {
         const int r0 = (tid / CT) * 4, c0 = (tid % CT) * 4;

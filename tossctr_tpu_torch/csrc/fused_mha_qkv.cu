@@ -31,19 +31,14 @@
 // score tile reads them as float4 rows without bank conflicts; the score
 // rows use an odd stride for the P.V pass.  The simple fp32-FMA design
 // leaves the tensor cores idle: that is the next step for speed.
-#include "common.cuh"
+#include "mha_core.cuh"
 
 namespace {
 
 using tossctr::align4;
 using tossctr::Dropout;
-using tossctr::from_f;
-using tossctr::load4;
-using tossctr::round_t;
 using tossctr::to_f;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using tossctr::mha::kThreads;
 
 struct Layout {
   int K4, XS, KS;                               // padded rows, x stride, score stride
@@ -85,131 +80,20 @@ mha_qkv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   float* x_s = smem + L.xs; // (K4, XS): the row's input ...
   float* s_s = smem + L.xs; // (K4, KS): ... later one head's scores / probabilities
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < D * D3; i += kThreads) w_s[i] = wqkv[i];
   for (int i = tid; i < D3; i += kThreads) b_s[i] = bqkv[i];
   for (int i = tid; i < K * K; i += kThreads) bias_s[i] = to_f<T>(bias[i]);
 
-  const int CT = D3 / 4;             // projection column tiles
-  const int proj_tiles = (K4 / 4) * CT;
-  const int KT = K4 / 4;             // score tiles per side
-  const int pv_tiles = (K4 / 2) * dh;
-
   for (int row = blockIdx.x; row < B; row += gridDim.x) {
-    const T* xr = x + (size_t)row * K * D;
-    T* outr = out + (size_t)row * K * D;
+    const size_t off = (size_t)row * K * D;
     __syncthreads();  // previous row's last head is done with s_s / v_s
-    for (int i = tid; i < K4 * D; i += kThreads) {
-      const int k = i / D, d = i - k * D;
-      x_s[k * XS + d] = k < K ? to_f<T>(xr[i]) : 0.f;
-    }
+    tossctr::mha::load_rows(x + off, K, D, K4, XS, x_s);
     __syncthreads();
-
-    // ---- q, k, v = round_T(x @ Wqkv + b): 4x4 register tiles ----
-    for (int t = tid; t < proj_tiles; t += kThreads) {
-      const int k0 = (t / CT) * 4, c0 = (t % CT) * 4;
-      float acc[4][4] = {};
-      for (int d = 0; d < D; ++d) {
-        float w[4];
-        load4(w_s + d * D3 + c0, w);
-        float xv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = x_s[(k0 + i) * XS + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], w[j], acc[i][j]);
-      }
-      const int which = c0 / D, col0 = c0 - which * D;  // D % 4 == 0: one stream per tile
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bj = b_s[c0 + j];
-        const int col = col0 + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float val = round_t<T>(__fadd_rn(acc[i][j], bj));
-          const int k = k0 + i;
-          if (which == 0)
-            qT[col * K4 + k] = val;
-          else if (which == 1)
-            kT[col * K4 + k] = val;
-          else
-            v_s[k * D + col] = val;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h) {
-      const int hd = h * dh;
-      // ---- scores: s = (q_h k_h^T) * scale + bias, fp32 ----
-      for (int t = tid; t < KT * KT; t += kThreads) {
-        const int i0 = (t / KT) * 4, j0 = (t % KT) * 4;
-        float acc[4][4] = {};
-        for (int e = 0; e < dh; ++e) {
-          float qv[4], kv[4];
-          load4(qT + (hd + e) * K4 + i0, qv);
-          load4(kT + (hd + e) * K4 + j0, kv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = i0 + i;
-          if (qi >= K) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = j0 + j;
-            if (kj < K)
-              s_s[qi * KS + kj] = __fadd_rn(__fmul_rn(acc[i][j], scale), bias_s[qi * K + kj]);
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- fp32 softmax per query row (one warp a row), times the keep
-      // mask in fp32, then rounded to T ----
-      for (int qi = warp; qi < K; qi += kWarps) {
-        float* sr = s_s + qi * KS;
-        float m = __int_as_float(0xff800000);  // -inf
-        for (int j = lane; j < K; j += 32) m = fmaxf(m, sr[j]);
-        m = tossctr::warp_max(m);
-        float sum = 0.f;
-        for (int j = lane; j < K; j += 32) {
-          const float e = expf(sr[j] - m);
-          sr[j] = e;
-          sum += e;
-        }
-        sum = tossctr::warp_sum(sum);
-        if (drop.on()) {
-          for (int j = lane; j < K; j += 32)
-            sr[j] = round_t<T>(__fmul_rn(__fdiv_rn(sr[j], sum), drop.attn(row, qi, j, h)));
-        } else {
-          for (int j = lane; j < K; j += 32) sr[j] = round_t<T>(__fdiv_rn(sr[j], sum));
-        }
-      }
-      __syncthreads();
-
-      // ---- o_h = p_h @ v_h: 2-row x 1-column tiles ----
-      for (int t = tid; t < pv_tiles; t += kThreads) {
-        const int i0 = (t / dh) * 2, e = t % dh;
-        const float* p0 = s_s + i0 * KS;
-        const float* p1 = p0 + KS;
-        const float* vc = v_s + hd + e;
-        float a0 = 0.f, a1 = 0.f;
-        for (int j = 0; j < K; ++j) {
-          const float vv = vc[j * D];
-          a0 = fmaf(p0[j], vv, a0);
-          a1 = fmaf(p1[j], vv, a1);
-        }
-        if (i0 < K) outr[i0 * D + hd + e] = from_f<T>(a0);
-        if (i0 + 1 < K) outr[(i0 + 1) * D + hd + e] = from_f<T>(a1);
-      }
-      __syncthreads();
-    }
+    tossctr::mha::project_qkv<T>(x_s, XS, w_s, b_s, K4, D, qT, kT, v_s, D);
+    for (int h = 0; h < H; ++h)
+      tossctr::mha::head_fwd<T>(qT, kT, bias_s, v_s, D, s_s, KS, K, K4, D, h * dh, dh, scale,
+                                row, h, drop, out + off);
   }
 }
 
@@ -248,11 +132,6 @@ extern "C" int tossctr_fused_mha_qkv_fwd(const void* x, const void* wqkv, const 
     return launch<__nv_bfloat16>(x, wqkv, bqkv, bias, out, B, K, D, H, scale, drop, device,
                                  stream);
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int tossctr_fused_mha_qkv_smem_bytes(int K, int D, int dtype) {
-  const Layout L(K, D, dtype == 1 ? 2 : 4);
-  return L.total * (int)sizeof(float);
 }
 
 extern "C" const char* tossctr_cuda_error_string(int code) {

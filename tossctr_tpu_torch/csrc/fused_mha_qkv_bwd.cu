@@ -35,19 +35,16 @@
 // (common.cuh reduce_partials) adds the partials in block order, so the
 // result repeats bit for bit (fp32 atomics would not).  Products run on
 // the CUDA cores in fp32; the tensor cores are the next step for speed.
-#include "common.cuh"
+#include "mha_core.cuh"
 
 namespace {
 
 using tossctr::align4;
 using tossctr::Dropout;
 using tossctr::from_f;
-using tossctr::load4;
 using tossctr::round_t;
 using tossctr::to_f;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using tossctr::mha::kThreads;
 constexpr int kMaxDim = 64;  // D <= 64 and K <= 64
 // dWqkv register tiles per thread: (64/4) * (192/4) tiles over 256 threads
 constexpr int kMaxWTiles = (kMaxDim / 4) * (3 * kMaxDim / 4) / kThreads;
@@ -104,7 +101,6 @@ mha_qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   float* p_s = smem + L.a;    // (K, KS): P, then round_T(P * keep)
   float* ds_s = smem + L.ds;  // (K, KS): dp * keep, then round_T(ds * scale)
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
 
   for (int i = tid; i < D * D3; i += kThreads) w_s[i] = wqkv[i];
   for (int i = tid; i < D3; i += kThreads) b_s[i] = bqkv[i];
@@ -113,8 +109,7 @@ mha_qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
     dbias_s[i] = 0.f;
   }
 
-  const int CT = D3 / 4;  // column tiles of the (K4, 3D) projection and of dWqkv
-  const int proj_tiles = (K4 / 4) * CT;
+  const int CT = D3 / 4;  // column tiles of dWqkv
   const int KT = K4 / 4;
   const int w_tiles = (D / 4) * CT;
   float dw[kMaxWTiles][4][4];
@@ -129,168 +124,16 @@ mha_qkv_bwd_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   for (int row = blockIdx.x; row < B; row += gridDim.x) {
     const size_t off = (size_t)row * K * D;
     __syncthreads();  // the previous row is done with every buffer
-    for (int i = tid; i < K4 * D; i += kThreads) {
-      const int k = i / D, d = i - k * D;
-      const bool in = k < K;
-      x_s[k * XS + d] = in ? to_f<T>(x[off + i]) : 0.f;
-      do_s[k * VS + d] = in ? to_f<T>(dout[off + i]) : 0.f;
-    }
+    tossctr::mha::load_rows(x + off, K, D, K4, XS, x_s);
+    tossctr::mha::load_rows(dout + off, K, D, K4, VS, do_s);
     __syncthreads();
-
-    // ---- recompute q, k, v = round_T(x @ Wqkv + b) ----
-    for (int t = tid; t < proj_tiles; t += kThreads) {
-      const int k0 = (t / CT) * 4, c0 = (t % CT) * 4;
-      float acc[4][4] = {};
-      for (int d = 0; d < D; ++d) {
-        float w[4], xv[4];
-        load4(w_s + d * D3 + c0, w);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = x_s[(k0 + i) * XS + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xv[i], w[j], acc[i][j]);
-      }
-      const int which = c0 / D, col0 = c0 - which * D;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bj = b_s[c0 + j];
-        const int col = col0 + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float val = round_t<T>(__fadd_rn(acc[i][j], bj));
-          const int k = k0 + i;
-          if (which == 0)
-            qT[col * K4 + k] = val;
-          else if (which == 1)
-            kT[col * K4 + k] = val;
-          else
-            v_s[k * VS + col] = val;
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h) {
-      const int hd = h * dh;
-      // ---- scores s = (q_h k_h^T) * scale + bias into p_s ----
-      for (int t = tid; t < KT * KT; t += kThreads) {
-        const int i0 = (t / KT) * 4, j0 = (t % KT) * 4;
-        float acc[4][4] = {};
-        for (int e = 0; e < dh; ++e) {
-          float qv[4], kv[4];
-          load4(qT + (hd + e) * K4 + i0, qv);
-          load4(kT + (hd + e) * K4 + j0, kv);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = i0 + i;
-          if (qi >= K) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = j0 + j;
-            if (kj < K)
-              p_s[qi * KS + kj] = __fadd_rn(__fmul_rn(acc[i][j], scale), bias_s[qi * K + kj]);
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- fp32 softmax per query row (one warp a row) ----
-      for (int qi = warp; qi < K; qi += kWarps) {
-        float* sr = p_s + qi * KS;
-        float m = __int_as_float(0xff800000);  // -inf
-        for (int j = lane; j < K; j += 32) m = fmaxf(m, sr[j]);
-        m = tossctr::warp_max(m);
-        float sum = 0.f;
-        for (int j = lane; j < K; j += 32) {
-          const float e = expf(sr[j] - m);
-          sr[j] = e;
-          sum += e;
-        }
-        sum = tossctr::warp_sum(sum);
-        for (int j = lane; j < K; j += 32) sr[j] = __fdiv_rn(sr[j], sum);
-      }
-
-      // ---- dp = (do_h v_h^T) * keep into ds_s ----
-      for (int t = tid; t < KT * KT; t += kThreads) {
-        const int i0 = (t / KT) * 4, j0 = (t % KT) * 4;
-        float acc[4][4] = {};
-        for (int e = 0; e < dh; ++e) {
-          float dv[4], vv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i] = do_s[(i0 + i) * VS + hd + e];
-            vv[i] = v_s[(j0 + i) * VS + hd + e];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dv[i], vv[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = i0 + i;
-          if (qi >= K) continue;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int kj = j0 + j;
-            if (kj >= K) continue;
-            const float dp = acc[i][j];
-            ds_s[qi * KS + kj] = drop.on() ? __fmul_rn(dp, drop.attn(row, qi, kj, h)) : dp;
-          }
-        }
-      }
-      __syncthreads();
-
-      // ---- ds = p * (dp - sum(dp * p)), dbias += ds, then ds_s =
-      // round_T(ds * scale) and p_s = round_T(p * keep); one warp a row,
-      // so each dbias entry has one owner thread ----
-      for (int qi = warp; qi < K; qi += kWarps) {
-        float* pr = p_s + qi * KS;
-        float* dr = ds_s + qi * KS;
-        float r = 0.f;
-        for (int j = lane; j < K; j += 32) r += __fmul_rn(dr[j], pr[j]);
-        r = tossctr::warp_sum(r);
-        for (int j = lane; j < K; j += 32) {
-          const float p = pr[j];
-          const float ds = __fmul_rn(p, __fsub_rn(dr[j], r));
-          dbias_s[qi * K + j] += ds;
-          dr[j] = round_t<T>(__fmul_rn(ds, scale));
-          pr[j] = round_t<T>(drop.on() ? __fmul_rn(p, drop.attn(row, qi, j, h)) : p);
-        }
-      }
-      __syncthreads();
-
-      // ---- dv_h = pd^T do_h (over v_h's columns), dk_h = ds^T q_h,
-      // dq_h = ds k_h; fp32, rounded where read.  A warp shares one
-      // column, so q, k and do are broadcast reads ----
-      for (int t = tid; t < K * dh; t += kThreads) {
-        const int e = t / K, j = t - e * K, col = hd + e;
-        const float* qc = qT + col * K4;
-        const float* kc = kT + col * K4;
-        float dv = 0.f, dk = 0.f, dq = 0.f;
-        for (int i = 0; i < K; ++i) {
-          dv = fmaf(p_s[i * KS + j], do_s[i * VS + col], dv);
-          dk = fmaf(ds_s[i * KS + j], qc[i], dk);
-          dq = fmaf(ds_s[j * KS + i], kc[i], dq);
-        }
-        v_s[j * VS + col] = dv;
-        dk_s[j * VS + col] = dk;
-        dq_s[j * VS + col] = dq;
-      }
-      __syncthreads();
-    }
+    tossctr::mha::project_qkv<T>(x_s, XS, w_s, b_s, K4, D, qT, kT, v_s, VS);  // recomputed
+    for (int h = 0; h < H; ++h)
+      tossctr::mha::head_bwd<T>(qT, kT, bias_s, v_s, do_s, dq_s, dk_s, VS, p_s, ds_s, KS,
+                                dbias_s, K, K4, h * dh, dh, scale, row, h, drop);
 
     // ---- x again (its buffer held P), for dWqkv ----
-    for (int i = tid; i < K4 * D; i += kThreads) {
-      const int k = i / D, d = i - k * D;
-      x_s[k * XS + d] = k < K ? to_f<T>(x[off + i]) : 0.f;
-    }
+    tossctr::mha::load_rows(x + off, K, D, K4, XS, x_s);
     if (tid < D3) {  // dbqkv sums the unrounded dq, dk, dv
       const int which = tid / D, col = tid - which * D;
       const float* g = which == 0 ? dq_s : (which == 1 ? dk_s : v_s);

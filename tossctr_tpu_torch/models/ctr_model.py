@@ -76,6 +76,7 @@ class ModelSpec:
     tfm_gating: str
     tfm_add_pos_bias: bool
     qnn_enabled: bool
+    tfm_norm: str = "rms"
     tfm_mha_dropout: float = 0.0
     tfm_ffn_dropout: float = 0.0
     dare_dropout: float = 0.0
@@ -139,6 +140,7 @@ def build_model_spec(cfg, dims: Dict[str, int]) -> ModelSpec:
         tfm_gating=s.tfm.gating,
         tfm_add_pos_bias=bool(s.tfm.add_positional_bias),
         qnn_enabled=bool(qa.enabled),
+        tfm_norm=s.tfm.norm,
         tfm_mha_dropout=float(s.tfm.mha_dropout),
         tfm_ffn_dropout=float(s.tfm.ffn_dropout),
         dare_dropout=float(cfg.model.dare_dropout),
@@ -155,6 +157,7 @@ def build_model_spec(cfg, dims: Dict[str, int]) -> ModelSpec:
             use_se=bool(qa.use_se),
             se_reduction=int(qa.se_reduction),
             pair_grouping=qa.pair_grouping,
+            norm=qa.norm,
         ),
         block_slices=block,
     )
@@ -195,6 +198,7 @@ class GroupedCatEmbedding(nn.Module):
 
 class CTRModel(nn.Module):
     def __init__(self, spec: ModelSpec, dtype=torch.float32, *, se_batch_stats: bool = True,
+                 use_pallas_attn: bool = True, use_pallas_ffn: bool = True,
                  use_pallas_fm: bool = False):
         super().__init__()
         self.spec = spec
@@ -215,7 +219,8 @@ class CTRModel(nn.Module):
             gating=sp.tfm_gating, add_positional_bias=sp.tfm_add_pos_bias,
             table_dtype=torch.bfloat16 if sp.table_dtype == "bfloat16" else torch.float32,
             dropout=sp.dare_dropout, mha_dropout=sp.tfm_mha_dropout,
-            ffn_dropout=sp.tfm_ffn_dropout,
+            ffn_dropout=sp.tfm_ffn_dropout, norm=sp.tfm_norm,
+            use_pallas_attn=use_pallas_attn, use_pallas_ffn=use_pallas_ffn,
         )
         if sp.qnn_enabled:
             self.qnn = QNNAlpha(sp.n_feat, D, se_batch_stats=se_batch_stats,
@@ -284,15 +289,14 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     parameters allocated on ``device``: the dense parameters trainable,
     the sequence table without grad (the trainer updates its rows).
     ``model.use_pallas_attention`` / ``use_pallas_ffn`` None or true
-    select the encoder's kernel path, the only one ported;
-    ``model.extra.use_pallas_fm`` selects the FM-cross kernels of the
-    QNN-alpha head.  A config that asks for an unported path raises."""
+    select the encoder's kernels, false its plain PyTorch attention core
+    or FFN (the JAX package resolves None to the kernels on a TPU only);
+    ``sequence.tfm.norm`` and ``model.qnn_alpha.norm`` pick RMSNorm or
+    LayerNorm; ``model.extra.use_pallas_fm`` selects the FM-cross kernels
+    of the QNN-alpha head.  A config that asks for an unported path
+    raises."""
     m, s = cfg.model, cfg.sequence
     unported = {
-        "model.use_pallas_attention: false (the unfused encoder)": m.use_pallas_attention is False,
-        "model.use_pallas_ffn: false (the unfused encoder)": m.use_pallas_ffn is False,
-        "sequence.tfm.norm other than rms": s.tfm.norm.lower() != "rms",
-        "model.qnn_alpha.norm other than rms": m.qnn_alpha.norm.lower() != "rms",
         "model.fused_seq_tables: false (split tables)": not m.fused_seq_tables,
         "sequence.select_chunk / select_proxy": bool(s.select_chunk or s.select_proxy),
     }
@@ -302,6 +306,8 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     with torch.device(resolve_device(device)):
         return CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
                         se_batch_stats=bool(m.qnn_alpha.se_batch_stats),
+                        use_pallas_attn=m.use_pallas_attention is not False,
+                        use_pallas_ffn=m.use_pallas_ffn is not False,
                         use_pallas_fm=bool(m.extra.get("use_pallas_fm", False)))
 
 
@@ -310,12 +316,13 @@ def init_params(model: CTRModel, seed: int) -> CTRModel:
     """Seeded random parameters with the flax initializers' scales: tables
     and the positional bias N(0, 1); dense kernels and projections
     lecun-normal; U, V and feature slopes N(0, 0.02); biases 0; norm
-    weights 1.  Draws on the parameters' device from a torch.Generator."""
+    weights and LayerNorm scales 1.  Draws on the parameters' device from a
+    torch.Generator."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "w":
+        if leaf in ("w", "scale"):
             p.fill_(1.0)
         elif leaf == "bias":
             p.zero_()

@@ -3,9 +3,9 @@
 Port of ``tossctr_tpu/models/dare.py`` with the lane-fused (V, 2D)
 sequence table (``emb_tables``: the att half scores, the rep half
 represents): dense top-k selection, ``pad_topk`` to the 8-row tile, the
-fused encoder layers, softmax or relu gating, the dropout on ``u_seq``
-and the aux head.  The reference-shaped split tables wait for a later
-slice.
+encoder layers (RMSNorm or LayerNorm, kernel or plain paths), softmax or
+relu gating, the dropout on ``u_seq`` and the aux head.  The
+reference-shaped split tables wait for a later slice.
 
 The table never takes a gradient.  A training pass given a ``taps`` dict
 records the selected ids and makes the gathered, pad-masked (B, K, 2D)
@@ -31,7 +31,8 @@ class DARE(nn.Module):
                  transformer_block: bool = True, n_layers: int = 2, n_heads: int = 4,
                  ffn_hidden: int = 256, gating: str = "softmax",
                  add_positional_bias: bool = True, table_dtype=torch.float32,
-                 dropout: float = 0.0, mha_dropout: float = 0.0, ffn_dropout: float = 0.0):
+                 dropout: float = 0.0, mha_dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 norm: str = "rms", use_pallas_attn: bool = True, use_pallas_ffn: bool = True):
         super().__init__()
         if gating not in ("softmax", "relu"):
             raise ValueError(f"gating must be softmax|relu, got {gating!r}")
@@ -49,7 +50,8 @@ class DARE(nn.Module):
         for i in range(self.n_layers):
             self.add_module(f"layer_{i}", DAREEncoderLayer(
                 emb_dim, n_heads, ffn_hidden, mha_dropout=mha_dropout, ffn_dropout=ffn_dropout,
-                add_pos_bias=add_positional_bias, max_len=top_k,
+                norm=norm, add_pos_bias=add_positional_bias, max_len=top_k,
+                use_pallas_attn=use_pallas_attn, use_pallas_ffn=use_pallas_ffn,
             ))
         self.aux_head = Dense(emb_dim, 1)
 

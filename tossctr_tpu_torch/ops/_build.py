@@ -25,7 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd",
-           "fm_cross", "fm_cross_bwd")
+           "fm_cross", "fm_cross_bwd", "fused_mha", "fused_mha_bwd", "fused_ffn", "fused_ffn_bwd")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +51,11 @@ SIGNATURES = {
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
     "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
     "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I, _I, _P]),
+    "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _P]),
+    "fused_mha_bwd": ("tossctr_fused_mha_bwd",
+                      [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
+    "fused_ffn": ("tossctr_fused_ffn_fwd", [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P]),
+    "fused_ffn_bwd": ("tossctr_fused_ffn_bwd", [_P] * 8 + [_I] * 4 + _DROP + [_I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,26 @@
-"""Fused qkv projection + multi-head attention over the K selected tokens.
+"""Multi-head attention over the K selected tokens: with the qkv
+projection fused in (``fused_mha_qkv``) and on already-projected q, k, v
+(``fused_mha``).
 
-Port of ``tossctr_tpu/ops/pallas_attention.py`` ``fused_mha_qkv``: the
-forward (``_fwd_call_qkv``) and its backward (``_bwd_call_qkv``), with the
-counter-hash dropout on the attention probabilities (``ops/dropout.py``).
-The kernels are ``csrc/fused_mha_qkv.cu`` (forward) and
-``csrc/fused_mha_qkv_bwd.cu`` (backward); ``fused_mha_qkv_reference`` and
-``fused_mha_qkv_bwd_reference`` are the plain PyTorch versions with the
-same rounding points, used for CPU tensors and to check the kernels on
-the card.  ``fused_mha_qkv`` is differentiable: its backward is
-``fused_mha_qkv_bwd``.
+Port of ``tossctr_tpu/ops/pallas_attention.py``:
+
+* ``fused_mha_qkv``: the forward (``_fwd_call_qkv``) and its backward
+  (``_bwd_call_qkv``); kernels ``csrc/fused_mha_qkv.cu`` and
+  ``csrc/fused_mha_qkv_bwd.cu``, plain versions
+  ``fused_mha_qkv_reference`` / ``fused_mha_qkv_bwd_reference``.  Every
+  kernel-path encoder layer runs it.
+* ``fused_mha``: the forward (``_fwd_call``) and its backward
+  (``_bwd_call``); kernels ``csrc/fused_mha.cu`` and
+  ``csrc/fused_mha_bwd.cu``, plain versions ``fused_mha_reference`` /
+  ``fused_mha_bwd_reference``.  ``MultiHeadSelfAttention`` with
+  ``fuse_qkv`` off runs it.
+
+Both drop attention probabilities with the counter-hash mask of the
+absolute (batch row, query, key, head) coordinates (``ops/dropout.py``
+``attention_keep``).  The plain versions keep the Pallas kernels'
+rounding points; they run for CPU tensors and check the kernels on the
+card.  Both public functions are differentiable: their backwards are the
+backward kernels.
 """
 
 from __future__ import annotations
@@ -35,18 +47,41 @@ def _merge(t):
     return t.transpose(1, 2).reshape(B, K, H * dh)
 
 
+def _softmax(q, k, bias):
+    """q, k (B, H, K, dh) fp32 -> the fp32 softmax P (B, H, K, K) of
+    q k^T / sqrt(dh) + bias."""
+    s = q @ k.transpose(-1, -2) * attention_scale(q.shape[-1])
+    s = s + bias.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
 def _probs(x, wqkv, bqkv, bias, H):
     """-> q, k, v (B, H, K, dh) fp32 of x's dtype values, and the fp32
     softmax P (B, H, K, K)."""
     D = x.shape[-1]
-    dt = x.dtype
-    qkv = (x.float() @ wqkv.float() + bqkv.float()).to(dt)
+    qkv = (x.float() @ wqkv.float() + bqkv.float()).to(x.dtype)
     q, k, v = (_heads(t, H) for t in qkv.split(D, dim=-1))
-    s = q @ k.transpose(-1, -2) * attention_scale(D // H)
-    s = s + bias.float()
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s)
-    return q, k, v, e / e.sum(dim=-1, keepdim=True)
+    return q, k, v, _softmax(q, k, bias)
+
+
+def _attend_bwd(q, k, v, p, dout, keep, dt):
+    """The attention core's backward with the Pallas rounding points
+    (pallas_attention.py:250-330, 456-510): P stays fp32 for
+    ds = p*(dp - sum(dp*p)); dv uses the rounded dropped P; dp is
+    multiplied by the keep mask; dbias sums the unscaled fp32 ds, then
+    ds*scale is rounded to ``dt`` before dq and dk.  q, k, v, dout (B, H,
+    K, dh) fp32 -> (dq, dk, dv (B, H, K, dh) fp32, dbias (K, K) fp32)."""
+    pd = p * keep if keep is not None else p
+    dv = pd.to(dt).float().transpose(-1, -2) @ dout
+    dp = dout @ v.transpose(-1, -2)
+    if keep is not None:
+        dp = dp * keep
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dbias = ds.sum(dim=(0, 1))
+    ds = (ds * attention_scale(q.shape[-1])).to(dt).float()
+    return ds @ k, ds.transpose(-1, -2) @ q, dv, dbias
 
 
 def fused_mha_qkv_reference(x, wqkv, bqkv, bias, n_heads: int,
@@ -77,21 +112,10 @@ def fused_mha_qkv_bwd_reference(x, wqkv, bqkv, bias, do, n_heads: int,
     B, K, D = x.shape
     H = n_heads
     dt = x.dtype
-    scale = attention_scale(D // H)
     q, k, v, p = _probs(x, wqkv, bqkv, bias, H)
-    dout = _heads(do, H)
     keep = (attention_keep(B, K, H, dropout_p, seed, device=x.device)
             if dropout_p > 0.0 else None)
-    pd = p * keep if keep is not None else p
-    dv = pd.to(dt).float().transpose(-1, -2) @ dout
-    dp = dout @ v.transpose(-1, -2)
-    if keep is not None:
-        dp = dp * keep
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dbias = ds.sum(dim=(0, 1))
-    ds = (ds * scale).to(dt).float()
-    dk = ds.transpose(-1, -2) @ q
-    dq = ds @ k
+    dq, dk, dv, dbias = _attend_bwd(q, k, v, p, _heads(do, H), keep, dt)
     dqkv = torch.cat([_merge(t) for t in (dq, dk, dv)], dim=-1).reshape(B * K, 3 * D)
     dqkv_t = dqkv.to(dt).float()
     dx = (dqkv_t @ wqkv.float().t()).reshape(B, K, D).to(dt)
@@ -214,3 +238,138 @@ def fused_mha_qkv(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
 
 fused_mha_qkv.launches = 0
 fused_mha_qkv_bwd.launches = 0
+
+
+# ---- fused_mha: attention on already-projected q, k, v ----
+
+
+def fused_mha_reference(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+    """q, k, v (B, K, D) and the head-shared bias (K, K) in one dtype.  The
+    softmax is fp32 over the K key columns; P is multiplied by the keep
+    mask in fp32 and rounded to q's dtype before P.V; the output is q's
+    dtype (pallas_attention.py:211-247, 369-428)."""
+    B, K, _ = q.shape
+    qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
+    p = _softmax(qh, kh, bias)
+    if dropout_p > 0.0:
+        p = p * attention_keep(B, K, n_heads, dropout_p, seed, device=q.device)
+    return _merge(p.to(q.dtype).float() @ vh).to(q.dtype)
+
+
+def fused_mha_bwd_reference(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0,
+                            seed: int = 0):
+    """Gradients of ``fused_mha_reference`` w.r.t. q, k, v and bias, with
+    the rounding points of the Pallas backward (``_attend_bwd``).  -> (dq,
+    dk, dv in q's dtype, dbias (K, K) the fp32 sum over the batch and the
+    heads)."""
+    B, K, _ = q.shape
+    H = n_heads
+    qh, kh, vh = (_heads(t, H) for t in (q, k, v))
+    p = _softmax(qh, kh, bias)
+    keep = (attention_keep(B, K, H, dropout_p, seed, device=q.device)
+            if dropout_p > 0.0 else None)
+    dq, dk, dv, dbias = _attend_bwd(qh, kh, vh, p, _heads(do, H), keep, q.dtype)
+    return (*(_merge(t).to(q.dtype) for t in (dq, dk, dv)), dbias)
+
+
+def _check_mha(q, k, v, bias, n_heads, dropout_p):
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, K, D), got {tuple(q.shape)}")
+    B, K, D = q.shape
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"q dtype must be float32 or bfloat16, got {q.dtype}")
+    if n_heads < 1 or D % n_heads:
+        raise ValueError(f"D={D} must divide by n_heads={n_heads}")
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    for name, t, shape in (("k", k, (B, K, D)), ("v", v, (B, K, D)), ("bias", bias, (K, K))):
+        if tuple(t.shape) != shape or t.dtype != q.dtype:
+            raise ValueError(
+                f"{name} must be {shape} {q.dtype}, got {tuple(t.shape)} {t.dtype}"
+            )
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+    """The forward alone (no autograd): the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    _check_mha(q, k, v, bias, n_heads, dropout_p)
+    if q.device.type == "cpu":
+        return fused_mha_reference(q, k, v, bias, n_heads, dropout_p, seed)
+    tensors = (q, k, v, bias)
+    _cuda_args("fused_mha", tensors)
+    B, K, D = q.shape
+    out = torch.empty_like(q)
+    lib = load_library("fused_mha")
+    rc = lib.tossctr_fused_mha_fwd(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), B, K, D, n_heads,
+        attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
+        DTYPE_CODES[q.dtype], q.device.index, stream_of(q),
+    )
+    check_launch(lib, rc, "fused_mha")
+    fused_mha.launches += 1
+    return out
+
+
+def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+    """-> (dq, dk, dv, dbias), dbias the fp32 sum over the batch and the
+    heads: the kernel on a CUDA tensor (per-block fp32 partials reduced in
+    a fixed order, so the result repeats bit for bit), the plain version
+    on a CPU tensor."""
+    _check_mha(q, k, v, bias, n_heads, dropout_p)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype} {do.device}")
+    if q.device.type == "cpu":
+        return fused_mha_bwd_reference(q, k, v, bias, do, n_heads, dropout_p, seed)
+    tensors = (q, k, v, bias, do)
+    _cuda_args("fused_mha_bwd", tensors)
+    B, K, D = q.shape
+    if D > 64 or K > 64:
+        raise ValueError(f"fused_mha_bwd kernel takes D <= 64 and K <= 64; got D={D} K={K}")
+    lib = load_library("fused_mha_bwd")
+    blocks = persistent_blocks(q)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    partials = torch.empty(blocks, K * K, dtype=torch.float32, device=q.device)
+    dbias = torch.empty(K, K, dtype=torch.float32, device=q.device)
+    rc = lib.tossctr_fused_mha_bwd(
+        *(t.data_ptr() for t in tensors), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        partials.data_ptr(), dbias.data_ptr(), blocks, B, K, D, n_heads,
+        attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
+        DTYPE_CODES[q.dtype], q.device.index, stream_of(q),
+    )
+    check_launch(lib, rc, "fused_mha_bwd")
+    fused_mha_bwd.launches += 1
+    return dq, dk, dv, dbias
+
+
+class _FusedMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, n_heads, dropout_p, seed):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.cfg = (n_heads, dropout_p, seed)
+        return fused_mha_fwd(q, k, v, bias, n_heads, dropout_p, seed)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = fused_mha_bwd(q, k, v, bias, do.contiguous(), *ctx.cfg)
+        # dq, dk, dv in q's dtype and dbias in the bias's, as the Pallas
+        # custom_vjp returns them (pallas_attention.py:1010-1014)
+        return dq, dk, dv, dbias.to(bias.dtype), None, None, None
+
+
+def fused_mha(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+    """softmax(q k^T / sqrt(dh) + bias) v for all heads, q, k, v (B, K, D)
+    head-major (D = n_heads * dh) and bias (K, K) shared by the heads and
+    the batch, with dropout ``dropout_p`` on the probabilities from the
+    counter hash of ``seed`` -> (B, K, D) in q's dtype.  Differentiable in
+    q, k, v and bias.
+
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    or raise.  The backward kernel takes K <= 64 and D <= 64."""
+    return _FusedMHA.apply(q, k, v, bias, n_heads, float(dropout_p), int(seed))
+
+
+fused_mha.launches = 0
+fused_mha_bwd.launches = 0
