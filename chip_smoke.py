@@ -12,7 +12,13 @@
    QNN-alpha head's shapes (also in fp32), each against its plain PyTorch
    version (error and tolerance), its time from CUDA events beside the
    plain version's, a PyTorch yardstick where PyTorch computes the same
-   function, and the least time the card could take.
+   function, and the least time the card could take.  Beside them:
+   ``fused_mha_qkv_bwd``'s key-tiled kernel at the flagship's K against
+   its row-resident one; the four attention kernels at the larger-K
+   configs' shapes (K = 120 at B = 8192, K = 152 at B = 4096); and
+   ``sweep_rows_add`` at the flagship's table update (the (10M, 128) bf16
+   table, 8192 x 64 ids, fp32 deltas) with uniform, zipf:1.0 and hot-id
+   ids, against its plain version and ``Tensor.index_add_``.
 4. Serving phase: a synthetic flagship test cache (3.5 batches of 8192
    rows), two full-width fold checkpoints (10M-row bf16 sequence table)
    from a seeded init with temperature calibrators, then ``infer_main``
@@ -53,13 +59,24 @@
    held against the CPU plain path, and the unfused encoder
    (``use_pallas_attention`` / ``use_pallas_ffn`` false) on the same
    weights: no kernel launch, probabilities within 0.02 of the kernels'.
-8. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
+8. Streaming-update phase: the flagship with ``train.exact_dedup:
+   false`` (a scatter-add), with ``table_update: sweep`` (the
+   ``sweep_rows_add`` kernel) and with ``embedding_optimizer:
+   sparse_sgd``: timed steps with launch counts (the sweep kernel once a
+   step in the sweep mode only), only selected rows changed and never the
+   pad row, the sweep mode's step profiled, and each mode's fp32 512-row
+   step against the CPU and against the plain versions on the card.
+9. K = 120 phase: ``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120,
+   4 layers, S1 query): timed steps through the encoder kernels at K =
+   120, the weights served from a fold checkpoint through ``infer_main``,
+   held against the CPU plain path within 0.02.
+10. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
    card runs it in its module: ``MultiHeadSelfAttention`` with
    ``fuse_qkv`` off (qkv Dense, ``fused_mha``) against ``fuse_qkv`` on
    (``fused_mha_qkv``) on the same parameters at the flagship shapes, the
    output and the gradients of x, the bias and every parameter, in bf16
    (one launch each of ``fused_mha`` and its backward) and in fp32.
-9. Prints the ``kernels`` JSON line (all ten kernels), then
+11. Prints the ``kernels`` JSON line (all eleven kernels), then
    ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line.  Scratch files live in a
@@ -107,9 +124,11 @@ LAYER_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_ffn", "fused_ffn_b
 # AdaGrad step moves a N(0, 1) bf16 row by under half an ulp: in bf16
 # storage neither side would change it).  select: share of each row's
 # selected ids found on the card and on the CPU; same_order: share of the
-# rows whose ordered selection is the same on both.  vs_cpu, the card
-# against the CPU on the rows with a history and the same ordered
-# selection; vs_plain, the card's kernels against their plain versions on
+# rows whose ordered selection is the same on both; same_relu (fp32 only,
+# None: not asked): share of those rows whose every ReLU input has the
+# same sign on both sides in the step's forward.  vs_cpu, the card
+# against the CPU on the rows with a history, the same ordered selection
+# and (where asked) the same ReLU signs; vs_plain, the card's kernels against their plain versions on
 # the card, on every row with a history: loss, relative; grads, norm of
 # the difference over the norm for all dense gradients together;
 # grad_tensor, the same for the worst single tensor (the positional
@@ -119,10 +138,10 @@ LAYER_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_ffn", "fused_ffn_b
 ACCUM_FLOOR = 1e-6
 _HELD = ("loss", "grads", "grad_tensor", "accum", "delta")
 CHECK_BANDS = {
-    "bf16": dict(select=0.999, same_order=0.3,
+    "bf16": dict(select=0.999, same_order=0.3, same_relu=None,
                  vs_cpu=dict(zip(_HELD, (1e-3, 3e-2, 8e-2, 5e-2, 6e-2))),
                  vs_plain=dict(zip(_HELD, (5e-4, 6e-3, 1e-2, 3e-3, 2.5e-2)))),
-    "none": dict(select=0.999, same_order=0.999,
+    "none": dict(select=0.999, same_order=0.999, same_relu=0.99,
                  vs_cpu=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4))),
                  vs_plain=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4)))),
 }
@@ -265,17 +284,20 @@ def kernel_phase(cfg, dev):
         f"(band {WGRAD_BAND} of each one's largest magnitude); "
         + "; ".join(f"{n}: {spread(a, b)}"
                     for n, a, b in zip(("dx", "dwqkv", "dbqkv", "dbias"), got, want)))
-    del got, want
+    del got
     xg, wg, bg = (t.detach().requires_grad_() for t in (x, wqkv, bqkv))
     out = sdpa_yardstick(xg, wg, bg)
     grad_bytes = 4 * (D * 3 * D + 3 * D + K * K)
     b_ms, b_by = bound_ms(nbytes(x, wqkv, bqkv, bias, do) + nbytes(x) + grad_bytes,
                           2 * B * K * D * 3 * D * 3 + 10 * B * K * K * D)
+    tiled_err = tiled_backward_check("fused_mha_qkv_bwd", fused_mha_qkv_bwd, bw, want)
+    del want
     results["fused_mha_qkv_bwd"] = dict(
         name="fused_mha_qkv_bwd", route="cuda",
         source="tossctr_tpu_torch/csrc/fused_mha_qkv_bwd.cu",
         replaces="tossctr_tpu/ops/pallas_attention.py:1101",
-        max_abs_err=max(errs), dropout_p=P_DROP,
+        max_abs_err=max(errs + [tiled_err]), dropout_p=P_DROP,
+        ms_tiled=cuda_time_ms(lambda: fused_mha_qkv_bwd(*bw, tiled=True)),
         ms=cuda_time_ms(lambda: fused_mha_qkv_bwd(*bw)),
         plain_ms=cuda_time_ms(lambda: fused_mha_qkv_bwd_reference(*bw)),
         bound_ms=b_ms, bound_by=b_by,
@@ -344,16 +366,216 @@ def kernel_phase(cfg, dev):
     del targs, dy, got, want
     results.update(separate_kernel_rows(cfg, dev, g))
     results.update(fm_kernel_rows(cfg, dev, g))
+    large_k_rows(cfg, dev, g, results)
+    results["sweep_rows_add"] = sweep_kernel_row(cfg, dev)
     for r in results.values():
         extra = (f", dropout off {r['ms_no_dropout']:.4f} ms (plain {r['plain_ms_no_dropout']:.4f})"
                  if "ms_no_dropout" in r else "")
         if "multihead_ms" in r:
             extra = f", the plain einsum path (fm_cross_multihead) {r['multihead_ms']:.4f} ms"
+        if "ms_tiled" in r:
+            extra += (f", the key-tiled kernel at this K {r['ms_tiled']:.4f} ms "
+                      f"({r['ms_tiled'] / r['ms'] - 1:+.1%})")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"yardstick {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
             f" ms{extra}")
+        for row in r.get("large_k", []):
+            log(f"[kernel] {r['name']} K={row['K']} B={row['B']}: {row['ms']:.4f} ms"
+                + (f" (dropout off {row['ms_no_dropout']:.4f})" if "ms_no_dropout" in row else "")
+                + f", plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}), max_abs_err {row['max_abs_err']:.6g}")
     return results
+
+
+def tiled_backward_check(name, fn, bw, want):
+    """The key-tiled backward kernel at the flagship's K (``tiled=True``)
+    against the plain version, in the bands of the row-resident one: ->
+    the largest error."""
+    import torch
+
+    got = fn(*bw, tiled=True)
+    torch.cuda.synchronize()
+    errs = [check_close(f"{name} tiled {i}", a, b,
+                        bf16_tolerance(b) if i == 0 else WGRAD_BAND * float(b.abs().max()))
+            for i, (a, b) in enumerate(zip(got, want))]
+    log(f"[kernel] {name} key-tiled kernel at K = {bw[0].shape[1]}: max_abs_err "
+        + ", ".join(f"{e:.6g}" for e in errs) + " (the row-resident kernel's bands)")
+    return max(errs)
+
+
+LARGE_K = ((120, 8192), (152, 4096))  # (K, B): v3_k120_s1_tpu and v3_k148_s1_tpu
+
+
+def large_k_rows(cfg, dev, g, results):
+    """The four attention kernels at the larger-K configs' shapes (K =
+    120 at B = 8192, K = 152 at B = 4096; D = 64, 8 heads, bf16, the last
+    4 key columns masked): each against its plain version with dropout
+    off and on, in the flagship rows' bands,
+    timed beside the plain version and the bound.  Appends a ``large_k``
+    list to each kernel's row."""
+    import torch
+
+    from tossctr_tpu_torch.ops import (
+        fused_mha,
+        fused_mha_bwd,
+        fused_mha_bwd_reference,
+        fused_mha_qkv,
+        fused_mha_qkv_bwd,
+        fused_mha_qkv_bwd_reference,
+        fused_mha_qkv_reference,
+        fused_mha_reference,
+    )
+
+    bf, f32 = torch.bfloat16, torch.float32
+    D, H = cfg.model.emb_dim, cfg.sequence.tfm.n_heads
+
+    def rnd(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def hold(name, got, want, act):
+        got, want = (got,) if torch.is_tensor(got) else got, (want,) if torch.is_tensor(want) \
+            else want
+        return max(check_close(f"{name} {i}", a, b, bf16_tolerance(b) if i in act
+                               else WGRAD_BAND * float(b.abs().max()))
+                   for i, (a, b) in enumerate(zip(got, want)))
+
+    for K, B in LARGE_K:
+        bias = rnd(K, K, std=0.5, dtype=f32)
+        bias[:, K - 4:] = -1e9
+        bias = bias.to(bf)
+        x, do = rnd(B, K, D), rnd(B, K, D)
+        wqkv, bqkv = rnd(D, 3 * D, std=D ** -0.5), rnd(3 * D, std=0.1, dtype=f32)
+        q, k, v = rnd(B, K, D), rnd(B, K, D), rnd(B, K, D)
+        cases = (
+            ("fused_mha_qkv", fused_mha_qkv, fused_mha_qkv_reference, (x, wqkv, bqkv, bias, H),
+             (0,), nbytes(x, wqkv, bqkv, bias) + nbytes(x), 2 * B * K * D * (3 * D + 2 * K)),
+            ("fused_mha_qkv_bwd", fused_mha_qkv_bwd, fused_mha_qkv_bwd_reference,
+             (x, wqkv, bqkv, bias, do, H), (0,),
+             nbytes(x, wqkv, bqkv, bias, do) + nbytes(x) + 4 * (D * 3 * D + 3 * D + K * K),
+             2 * B * K * D * 3 * D * 3 + 10 * B * K * K * D),
+            ("fused_mha", fused_mha, fused_mha_reference, (q, k, v, bias, H), (0,),
+             nbytes(q, k, v, bias) + nbytes(q), 4 * B * K * K * D),
+            ("fused_mha_bwd", fused_mha_bwd, fused_mha_bwd_reference, (q, k, v, bias, do, H),
+             (0, 1, 2), nbytes(q, k, v, bias, do) + 3 * nbytes(q) + 4 * K * K,
+             10 * B * K * K * D),
+        )
+        for name, fn, plain, args, act, n_bytes, n_flops in cases:
+            fwd = not name.endswith("_bwd")
+            errs = []
+            for p in (0.0, P_DROP):
+                got = fn(*args, p, DROP_SEED)
+                torch.cuda.synchronize()
+                errs.append(hold(f"{name} K={K} p={p}", got, plain(*args, p, DROP_SEED), act))
+                del got
+            b_ms, b_by = bound_ms(n_bytes, n_flops)
+            row = dict(K=K, B=B, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+                       ms=cuda_time_ms(lambda: fn(*args, P_DROP, DROP_SEED), iters=10),
+                       plain_ms=cuda_time_ms(lambda: plain(*args, P_DROP, DROP_SEED), iters=3,
+                                             warmup=1))
+            if fwd:
+                row["ms_no_dropout"] = cuda_time_ms(lambda: fn(*args), iters=10)
+            results[name].setdefault("large_k", []).append(row)
+            torch.cuda.empty_cache()
+        del bias, x, do, wqkv, bqkv, q, k, v
+        torch.cuda.empty_cache()
+
+
+SWEEP_HOT = 150_000  # occurrences of the hot id (the pad id) in the "hot" case
+
+
+def sweep_ids(kind, V, N, dev):
+    """N update ids over V rows: uniform; zipf:1.0 through bench.py's
+    truncated-Pareto inverse CDF and multiplicative-hash shuffle (the
+    same arithmetic, in torch); or uniform with the pad id 0 SWEEP_HOT
+    times, as a batch's empty slots bring it."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    if kind == "zipf":
+        u = torch.rand(N, generator=g, device=dev, dtype=torch.float64)
+        ranks = torch.clamp(torch.exp(u * np.log(float(V))).long(), max=V - 1)
+        return (ranks * 2654435761) % V
+    ids = torch.randint(0, V, (N,), generator=g, device=dev)
+    if kind == "hot":
+        ids[torch.randperm(N, generator=g, device=dev)[:SWEEP_HOT]] = 0
+    return ids
+
+
+def sweep_kernel_row(cfg, dev):
+    """``sweep_rows_add`` at the flagship's update: the lane-fused (V, 2D)
+    bf16 table, N = B x K ids, fp32 deltas (as the AdaGrad step makes
+    them), with uniform, zipf:1.0 and hot-id ids.  Each case against the
+    plain version on copies of one table (bf16: one ulp of each element
+    plus 1e-5 of the largest, as tests/test_torch_cuda_kernels.py), a
+    second run bit-equal to the first, untouched rows unchanged; timed
+    beside the plain version, ``Tensor.index_add_`` of the bf16 deltas
+    (atomics, table-dtype sums: not bit-equal) and the bound (ids and
+    deltas read once, each touched row read and written once)."""
+    import torch
+
+    from tossctr_tpu_torch.ops import sweep_rows_add, sweep_rows_add_reference
+
+    V, W = cfg.model.seq_vocab, 2 * cfg.model.emb_dim
+    K = -(-cfg.sequence.top_k // 8) * 8
+    N = cfg.train.batch_size * K
+    gen = torch.Generator(device=dev).manual_seed(9)
+    table = torch.randn(V, W, generator=gen, device=dev).to(torch.bfloat16)
+    deltas = torch.randn(N, W, generator=gen, device=dev) * 1e-3
+    d_bf = deltas.to(torch.bfloat16)
+    cases = []
+    for kind in ("uniform", "zipf", "hot"):
+        ids = sweep_ids(kind, V, N, dev)
+        touched = torch.unique(ids)
+        got, again, want = table.clone(), table.clone(), table.clone()
+        sweep_rows_add([got], ids, [deltas])
+        sweep_rows_add([again], ids, [deltas])
+        sweep_rows_add_reference([want], ids, [deltas])
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"sweep_rows_add {kind}: two runs differ")
+        mask = torch.ones(V, dtype=torch.bool, device=dev)
+        mask[touched] = False
+        if not torch.equal(got[mask], table[mask]):
+            raise AssertionError(f"sweep_rows_add {kind}: an untouched row changed")
+        g_t, w_t = got[touched].float(), want[touched].float()
+        err = float((g_t - w_t).abs().max())
+        excess = (g_t - w_t).abs() - (2.0 ** -7 * torch.maximum(g_t.abs(), w_t.abs())
+                                      + 1e-5 * float(w_t.abs().max()))
+        if float(excess.max()) > 0:
+            raise AssertionError(f"sweep_rows_add {kind}: {err} beyond one bf16 ulp")
+        diff = float((g_t != w_t).float().mean())
+        del again, want, mask, g_t, w_t
+        n_bytes = ids.numel() * ids.element_size() + deltas.numel() * 4 + touched.numel() * W * 4
+        b_ms, b_by = bound_ms(n_bytes, 0)
+        case = dict(ids=kind, N=N, unique=touched.numel(), max_abs_err=err,
+                    rows_differing_elements=diff, bound_ms=b_ms, bound_by=b_by,
+                    ms=cuda_time_ms(lambda: sweep_rows_add([got], ids, [deltas]), iters=10),
+                    plain_ms=cuda_time_ms(lambda: sweep_rows_add_reference([got], ids, [deltas]),
+                                          iters=3, warmup=1),
+                    library_ms=cuda_time_ms(lambda: got.index_add_(0, ids, d_bf), iters=10))
+        cases.append(case)
+        log(f"[kernel] sweep_rows_add V={V} W={W} N={N} ids={kind}: {case['unique']} unique; "
+            f"max_abs_err {err:.6g} ({diff:.3%} of the touched elements one ulp apart; band one "
+            f"bf16 ulp), repeats bit for bit; {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
+            f"ms, index_add_ {case['library_ms']:.4f} ms (atomic bf16 sums: not bit-equal), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del got, ids, touched
+        torch.cuda.empty_cache()
+    del table, deltas, d_bf
+    torch.cuda.empty_cache()
+    head = cases[0]  # uniform ids: the headline row; every case beside it
+    return dict(name="sweep_rows_add", route="cuda",
+                source="tossctr_tpu_torch/csrc/sweep_rows_add.cu",
+                replaces="tossctr_tpu/ops/pallas_scatter.py:224",
+                max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
+                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"],
+                library_call="Tensor.index_add_ of the bf16 deltas (atomics, bf16 sums)",
+                cases=cases)
 
 
 def separate_kernel_rows(cfg, dev, g):
@@ -767,18 +989,43 @@ def trainer_for(cfg, model):
     return state, step
 
 
-def first_step(cfg, model, state, step, batch, tag):
+def must_change(cfg):
+    """The state the first step must change, by the table update: the one
+    it writes without atomics.  Exact dedup writes the accumulator with
+    ``index_copy_``, the sweep the table through ``sweep_rows_add``, and
+    sparse SGD keeps only the table.  The streaming scatter adds into both
+    with atomics, and an fp32 atomic add flushes a subnormal square to
+    zero (which cannot change a step: AdaGrad's eps dwarfs its square
+    root), so there either one will do."""
+    t = cfg.train
+    if t.embedding_optimizer == "sparse_sgd":
+        return "table"
+    if t.extra.get("exact_dedup", False):
+        return "accumulator"
+    return "table" if t.extra.get("table_update", "auto") == "sweep" else "table or accumulator"
+
+
+def first_step(cfg, model, state, step, batch, tag, require_change=True):
     """The first train step, checked: it changes only table rows the batch
-    selected, never the pad row.  -> (state, loss)."""
+    selected, never the pad row, and (``require_change``) some dense
+    parameters and some rows of what ``must_change`` names.
+    -> (state, loss)."""
     import torch
 
-    table, accum = model.dare.emb_tables, state.table_opt["emb_tables"].accum
+    from tossctr_tpu_torch.train.trainer import dense_params
+
+    table = model.dare.emb_tables
+    opt = state.table_opt.get("emb_tables")  # sparse SGD keeps no accumulator
+    accum = opt.accum if opt is not None else torch.zeros(table.shape[0], 1, device=table.device)
     sel = selected_ids(model, batch)
     before, acc_before = table.detach().clone(), accum.clone()
+    dense_before = torch.cat([p.detach().reshape(-1).float() for p in dense_params(model).values()])
     t0 = time.time()
     state, loss = step(state, batch)
     first = float(loss)
     log(f"[{tag}] step 1: loss {first:.6f}, {time.time() - t0:.2f} s (first call)")
+    dense_after = torch.cat([p.detach().reshape(-1).float() for p in dense_params(model).values()])
+    dense_moved = int((dense_after != dense_before).sum())
     changed = torch.nonzero((table != before).any(dim=1))[:, 0]
     acc_changed = torch.nonzero((accum != acc_before).any(dim=1))[:, 0]
     pad = cfg.sequence.pad_id
@@ -786,14 +1033,23 @@ def first_step(cfg, model, state, step, batch, tag):
     touched = touched[touched != pad]
     outside = changed[~torch.isin(changed, touched)]
     pad_moved = bool((table[pad] != before[pad]).any() or (accum[pad] != acc_before[pad]).any())
-    log(f"[{tag}] step 1: the batch selected {touched.numel()} distinct non-pad ids; "
-        f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulator changed, "
-        f"{int((~torch.isin(acc_changed, touched)).sum())} of them not selected; "
-        f"{changed.numel()} bf16 table rows changed, {outside.numel()} of them not selected; "
+    log(f"[{tag}] step 1: {dense_moved} of {dense_before.numel()} dense parameters moved; the "
+        f"batch selected {touched.numel()} distinct non-pad ids; "
+        + (f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulator changed, "
+           f"{int((~torch.isin(acc_changed, touched)).sum())} of them not selected; "
+           if opt is not None else "no accumulator (sparse SGD); ")
+        + f"{changed.numel()} bf16 table rows changed, {outside.numel()} of them not selected; "
         f"pad row changed: {pad_moved}")
-    if (acc_changed.numel() == 0 or outside.numel() or pad_moved
+    need = must_change(cfg)
+    moved = {"accumulator": acc_changed.numel(), "table": changed.numel(),
+             "table or accumulator": acc_changed.numel() + changed.numel()}[need]
+    log(f"[{tag}] step 1 must change some rows of the {need}: {moved}")
+    if require_change and dense_moved == 0:
+        raise AssertionError(f"{tag}: the step moved no dense parameter")
+    if ((require_change and moved == 0) or outside.numel() or pad_moved
             or not bool(torch.isin(acc_changed, touched).all())):
-        raise AssertionError("the table update touched rows it should not have")
+        raise AssertionError(f"{tag}: the table update touched rows it should not have, or "
+                             "none it should")
     return state, first
 
 
@@ -870,7 +1126,8 @@ def profile_step(state, step, batch, tag):
     dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in dev_events) / 1e6
     ours = ("mha_qkv_fwd", "block_tail_fwd", "mha_qkv_bwd", "block_tail_bwd", "ffn_fwd",
-            "ffn_bwd", "mha_fwd", "mha_bwd", "fm_fwd", "fm_bwd", "fm_dv", "reduce_partials")
+            "ffn_bwd", "mha_fwd", "mha_bwd", "fm_fwd", "fm_bwd", "fm_dv", "reduce_partials",
+            "sweep_pieces", "sweep_merge")
     ours_s = sum(e.self_device_time_total for e in dev_events
                  if any(k in e.key for k in ours)) / 1e6
     table_txt = events.table(sort_by="cuda_time_total", row_limit=30, max_name_column_width=60)
@@ -1126,7 +1383,8 @@ def layernorm_phase(tmp, test_man, train_cache, dev):
     del state, step, batches
     torch.cuda.empty_cache()
 
-    train_reference_check(layernorm_config_dict(), train_cache, dev, "none", tag="layernorm")
+    train_reference_check(layernorm_config_dict(), train_cache, dev, "none", tag="layernorm",
+                          held_only=True)
 
     # ---- the trained weights served from one fold checkpoint ----
     cal = Calibrator("temperature")
@@ -1175,6 +1433,189 @@ def layernorm_phase(tmp, test_man, train_cache, dev):
     del model, unfused, cache
     torch.cuda.empty_cache()
     return launches, served
+
+
+def trained_steps(cfg, model, batches, n_steps, tag, expected, require_change=True):
+    """The first step checked (``first_step``), one warm step, then
+    ``n_steps`` timed ones over the rotating batches with the launch
+    counts read around them, held to ``expected`` ({kernel: launches}).
+    -> (state, step, launches)."""
+    import torch
+
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    state, step = trainer_for(cfg, model)
+    torch.cuda.reset_peak_memory_stats()
+    state, first = first_step(cfg, model, state, step, batches[0], tag, require_change)
+    state, loss = step(state, batches[1 % len(batches)])  # warm
+    float(loss)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(n_steps):
+        state, loss = step(state, batches[(i + 2) % len(batches)])
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    losses = [float(x) for x in losses]
+    B = cfg.train.batch_size
+    log(f"[{tag}] {n_steps} steps: {1e3 * wall / n_steps:.2f} ms/step, {n_steps * B / wall:.1f} "
+        f"examples/s (B={B}, no claim), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+        f"{[round(x, 6) for x in losses]}")
+    log(f"[{tag}] launches during the {n_steps} steps: {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and np.isfinite(first)):
+        raise AssertionError(f"{tag}: non-finite training loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"{tag}: kernel launches {launches} != {expected}")
+    return state, step, launches
+
+
+K120_STEPS = 3  # timed steps of the K = 120 phase, after 2 warm ones
+
+
+def k120_phase(tmp, dev):
+    """``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120, 4 encoder
+    layers, S1 query, B = 8192, the 10M-row table, random seeded weights):
+    train steps through the RMS encoder kernels at K = 120 (their
+    query-tiled forwards and key-tiled backwards), the fp32 512-row step
+    held against the CPU and against the plain versions on the card
+    (``train_reference_check``), the weights served from one fold
+    checkpoint through ``infer_main`` and held against the CPU plain path
+    within 0.02.  -> (launches of the timed steps, launches of
+    infer_main)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import v3_k120_config_dict
+    from tossctr_tpu_torch.data import BatchIterator, ShardCache
+    from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.eval.calibration import Calibrator, TemperatureScaler
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.models import build_model, init_params
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.train.checkpoint import save_fold_checkpoint
+
+    d = v3_k120_config_dict()
+    d["exp_name"] = "chip_k120"
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    cfg0 = Config.from_dict(copy.deepcopy(d))
+    B, n_layers = cfg0.train.batch_size, cfg0.sequence.tfm.n_layers
+    t0 = time.time()
+    train_man = write_synth_cache_for(cfg0, os.path.join(tmp, "cache", "k120_train"), 4 * B,
+                                      num_dim=N_NUM, seed=13)
+    d["data"]["manifest_test"] = write_synth_cache_for(
+        cfg0, os.path.join(tmp, "cache", "k120_test"), 2 * B, num_dim=N_NUM, seed=14)
+    cfg = Config.from_dict(copy.deepcopy(d))
+    cache = ShardCache(train_man)
+    model = init_params(build_model(cfg, cache.dims, dev), seed=2026)
+    loader = BatchIterator(cache, batch_size=B, train=True, shuffle=True, seed=cfg.seed,
+                           drop_last=cfg.train.drop_partial_batch)
+    batches = [to_device(b, dev) for b in loader]
+    torch.cuda.synchronize()
+    log(f"[k120] v3_k120_s1_tpu: K={cfg.sequence.top_k}, {n_layers} layers, query "
+        f"{cfg.sequence.query_mode}, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        f"parameters, {len(batches)} batches of {B}, set-up {time.time() - t0:.1f} s")
+    expected = {k: n_layers * K120_STEPS if k in RMS_ENCODER else 0 for k in launch_counts()}
+    # the synthetic batches hold empty histories, whose gradients blow the
+    # pre-clip norm up (ROADMAP queue 3): the clip can then scale every
+    # gradient below what the parameters, the fp32 accumulator and the bf16
+    # table resolve, so the first step need not change anything; it must
+    # change no unselected row, and the step is held to the CPU below on
+    # the rows with a history
+    log(f"[k120] the first batch's global gradient norm before the clip (no dropout): "
+        f"{grad_norm_on(cfg, model, batches[0]):.6g} (the clip is at {cfg.train.grad_clip_norm}; "
+        f"{int((batches[0]['seq'] == cfg.sequence.pad_id).all(dim=1).sum())} rows have an "
+        f"empty history)")
+    state, step, launches = trained_steps(cfg, model, batches, K120_STEPS, "k120", expected,
+                                          require_change=False)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    train_reference_check(copy.deepcopy(d), cache, dev, "none", tag="k120", held_only=True)
+    torch.cuda.empty_cache()
+
+    cal = Calibrator("temperature")
+    cal.temp_scaler = TemperatureScaler(T=1.1)
+    save_fold_checkpoint(cfg.exp_dir(), 0, state_dict=model.state_dict(), cfg_dict=cfg.to_dict(),
+                         best_score=0.4, epoch=1, global_step=K120_STEPS + 2, calibrator=cal)
+    del model
+    torch.cuda.empty_cache()
+    test_cache = ShardCache(d["data"]["manifest_test"])
+    n_batches = -(-len(test_cache) // B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    path = infer_main(cfg, device=dev)
+    serve_wall = time.time() - t0
+    served = launch_counts()
+    want = {k: n_layers * n_batches if k in RMS_ENCODER and not k.endswith("_bwd") else 0
+            for k in served}
+    log(f"[k120] infer_main served the fold: {path} in {serve_wall:.2f} s; launches {served}, "
+        f"expected {want}")
+    if served != want:
+        raise AssertionError(f"K = 120 serving launches {served} != {want}")
+    probs = check_submission(path, test_cache)
+    log(f"[k120] submission: {len(probs)} rows, probabilities in [{probs.min():.6f}, "
+        f"{probs.max():.6f}], mean {probs.mean():.6f}")
+    reference_check(cfg, test_cache, dev, tag="k120")
+    torch.cuda.empty_cache()
+    return launches, served
+
+
+# the three streaming table-update modes the JAX sparse step dispatches
+STREAM_MODES = {
+    "scatter": dict(exact_dedup=False),
+    "sweep": dict(exact_dedup=False, table_update="sweep"),
+    "sparse_sgd": dict(exact_dedup=False, embedding_optimizer="sparse_sgd"),
+}
+STREAM_STEPS = 3  # timed steps a mode, after 2 warm ones
+
+
+def stream_phase(train_cache, dev):
+    """The flagship with each streaming table update at full width (B =
+    8192, every dropout on): ``exact_dedup: false`` (the JAX default, a
+    scatter-add), with ``table_update: sweep`` (the ``sweep_rows_add``
+    kernel) and ``embedding_optimizer: sparse_sgd``.  Timed steps with
+    launch counts (``sweep_rows_add`` once a step in the sweep mode, never
+    otherwise), only selected rows changed and never the pad row, a
+    profile of the sweep mode's step, and each mode's fp32 512-row step
+    against the CPU and against the plain versions on the card.  -> the
+    sweep mode's launches."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+    from tossctr_tpu_torch.data import BatchIterator
+    from tossctr_tpu_torch.models import init_params
+    from tossctr_tpu_torch.ops import launch_counts
+    from tossctr_tpu_torch.train.trainer import build_model
+
+    sweep_launches = None
+    for mode, over in STREAM_MODES.items():
+        d = flagship_config_dict()
+        d["train"].update(over)
+        cfg = Config.from_dict(copy.deepcopy(d))
+        t0 = time.time()
+        model = init_params(build_model(cfg, train_cache.dims, dev), seed=2027)
+        loader = BatchIterator(train_cache, batch_size=cfg.train.batch_size, train=True,
+                               shuffle=True, seed=cfg.seed, drop_last=cfg.train.drop_partial_batch)
+        batches = [to_device(b, dev) for b in loader][:4]
+        log(f"[stream {mode}] train {over}: set-up {time.time() - t0:.1f} s")
+        expected = {k: (3 * STREAM_STEPS if k in RMS_ENCODER else
+                        STREAM_STEPS if k == "sweep_rows_add" and mode == "sweep" else 0)
+                    for k in launch_counts()}
+        state, step, launches = trained_steps(cfg, model, batches, STREAM_STEPS,
+                                              f"stream {mode}", expected)
+        if mode == "sweep":
+            sweep_launches = launches
+            profile_step(state, step, batches[0], "stream sweep")
+        del state, step, batches, model
+        torch.cuda.empty_cache()
+        train_reference_check(d, train_cache, dev, "none", tag=f"stream {mode}", held_only=True)
+        torch.cuda.empty_cache()
+    return sweep_launches
 
 
 def mha_module_check(cfg, dev):
@@ -1247,12 +1688,14 @@ def mha_module_check(cfg, dev):
 
 @contextlib.contextmanager
 def plain_versions_on_card():
-    """The encoder kernels' wrappers swapped for their plain PyTorch
-    versions, which then run on the card: a witness that splits the card's
-    rounding between the kernels and the rest of the step."""
+    """The encoder kernels' and the table update's wrappers swapped for
+    their plain PyTorch versions, which then run on the card: a witness
+    that splits the card's rounding between the kernels and the rest of
+    the step."""
     # the modules, not the package's functions of the same name
     fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
     ff = importlib.import_module("tossctr_tpu_torch.ops.fused_ffn")
+    sw = importlib.import_module("tossctr_tpu_torch.ops.sweep_scatter")
 
     swaps = [(fa, "fused_mha_qkv_fwd", fa.fused_mha_qkv_reference),
              (fa, "fused_mha_qkv_bwd", fa.fused_mha_qkv_bwd_reference),
@@ -1261,7 +1704,8 @@ def plain_versions_on_card():
              (ff, "fused_block_tail_fwd", ff.fused_block_tail_reference),
              (ff, "fused_block_tail_bwd", ff.fused_block_tail_bwd_reference),
              (ff, "fused_ffn_fwd", ff.fused_ffn_reference),
-             (ff, "fused_ffn_bwd", ff.fused_ffn_bwd_reference)]
+             (ff, "fused_ffn_bwd", ff.fused_ffn_bwd_reference),
+             (sw, "sweep_rows_add", sw.sweep_rows_add_reference)]
     saved = [getattr(m, n) for m, n, _ in swaps]
     try:
         for m, n, plain in swaps:
@@ -1270,6 +1714,55 @@ def plain_versions_on_card():
     finally:
         for (m, n, _), fn in zip(swaps, saved):
             setattr(m, n, fn)
+
+
+def relu_signs(model, batch, device):
+    """The sign of every ReLU input in ``model``'s forward on ``batch`` (a
+    dict of numpy arrays) as the first train step runs it (its dropout
+    generator), in call order."""
+    import torch
+
+    from tossctr_tpu_torch.models.layers import DropoutRNG
+    from tossctr_tpu_torch.train.trainer import step_seed
+
+    signs, relu = [], torch.relu
+
+    def spy(x):
+        signs.append((x > 0).cpu())
+        return relu(x)
+
+    torch.relu = spy
+    try:
+        with torch.no_grad():
+            model(to_device(batch, device), rng=DropoutRNG(step_seed(1, 0), device))
+    finally:
+        torch.relu = relu
+    return signs
+
+
+def same_relu_rows(sides, batch, rows):
+    """``rows`` less the rows whose ReLU inputs take another sign on the
+    card than on the CPU in the first step's forward on just those rows:
+    one input within rounding of 0 sends a row's gradient down another
+    path wholesale.  The SE gates read the batch's mean, so dropping a row
+    can move another's signs: repeat until none differs.  sides: ((model,
+    device), (model, device)).  -> (rows kept, rows dropped)."""
+    import torch
+
+    keep = rows.clone()
+    for _ in range(4):
+        sub = {k: v[keep.numpy()] for k, v in batch.items()}
+        n = int(keep.sum())
+        flip = torch.zeros(n, dtype=torch.bool)
+        for a, b in zip(*(relu_signs(m, sub, x) for m, x in sides)):
+            if a.shape[0] == n:
+                flip |= (a != b).reshape(n, -1).any(dim=1)
+            elif bool((a != b).any()):  # a batch-level input: every row
+                flip[:] = True
+        if not flip.any():
+            return keep, int(rows.sum()) - n
+        keep[keep.nonzero()[:, 0][flip]] = False
+    raise AssertionError("the ReLU signs of the card and the CPU do not settle")
 
 
 def _step_record(cfg, model, init, batch, device, ids, variant=None):
@@ -1293,8 +1786,9 @@ def _step_record(cfg, model, init, batch, device, ids, variant=None):
            "plain versions": plain_versions_on_card()}[variant]
     with ctx:
         state, loss = step(state, to_device(batch, device))
+    opt = state.table_opt.get("emb_tables")
     rec = dict(loss=float(loss), before=before, rows=table[on].double().cpu(),
-               accum=state.table_opt["emb_tables"].accum[on].double().cpu(),
+               accum=None if opt is None else opt.accum[on].double().cpu(),
                grads={n: p.grad.double().cpu() for n, p in dense_params(model).items()})
     del state, step
     if device.type == "cuda":
@@ -1306,19 +1800,36 @@ def _grad_norm(cfg, model, init, batch, device):
     """The global norm of the dense and table-row gradients of the loss
     (deterministic forward) from the parameters ``init``: what the step
     clips to ``train.grad_clip_norm``."""
+    model.load_state_dict(init)
+    return grad_norm_on(cfg, model, to_device(batch, device))
+
+
+def grad_norm_on(cfg, model, b):
+    """``_grad_norm`` of ``model`` as it stands on the batch ``b`` of
+    tensors on its device."""
     from tossctr_tpu_torch.train.loss import bce_wll_style
     from tossctr_tpu_torch.train.trainer import dense_params
 
-    model.load_state_dict(init)
-    b, taps = to_device(batch, device), {}
+    taps = {}
     z, _, aux = model(b, taps=taps)
     w = float(cfg.model.qnn_alpha.aux_head_weight)
-    (bce_wll_style(z, b["y"], b["valid"]) + w * bce_wll_style(aux, b["y"], b["valid"])).backward()
+    valid = b.get("valid")
+    (bce_wll_style(z, b["y"], valid) + w * bce_wll_style(aux, b["y"], valid)).backward()
     grads = [p.grad for p in dense_params(model).values() if p.grad is not None]
     total = sum(float(g.double().square().sum()) for g in grads + [taps["table_rows"].grad])
     for p in model.parameters():
         p.grad = None
     return total ** 0.5
+
+
+def log_grad_norms(cfg, card_model, init, batch, dev, nonempty, rows_of, tag, amp):
+    """The pre-clip global gradient norm of the whole batch and of its rows
+    with a history (the empty-history blow-up, ROADMAP queue 3)."""
+    log(f"[{tag}] amp={amp} global gradient norm before the clip (card, no dropout): whole "
+        f"batch {_grad_norm(cfg, card_model, init, batch, dev):.6g}; its "
+        f"{int(nonempty.sum())} rows with a non-empty history "
+        f"{_grad_norm(cfg, card_model, init, rows_of(nonempty), dev):.6g} (the clip is at "
+        f"{cfg.train.grad_clip_norm}; {int((~nonempty).sum())} rows have an empty history)")
 
 
 def _compare_steps(c, r):
@@ -1337,19 +1848,26 @@ def _compare_steps(c, r):
     got["grad_tensor"] = max(per.values())
     got["worst"] = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     got["pbias"] = {n: e for n, e in per.items() if "pbias" in n}
-    acc = r["accum"].max(dim=1).values
-    big = acc >= ACCUM_FLOOR * float(acc.max())
+    if r["accum"] is not None:
+        acc = r["accum"].max(dim=1).values
+        big = acc >= ACCUM_FLOOR * float(acc.max())
+        got["accum_all"] = rel(c["accum"], r["accum"])
+        got["accum"] = rel(c["accum"][big], r["accum"][big])
+        got["accum_halves"] = [rel(c["accum"][big, h], r["accum"][big, h]) for h in (0, 1)]
+        got["acc_max"] = float(acc.max())
+    else:  # sparse SGD: no accumulator; the rows whose update is not negligible
+        acc = (r["rows"] - r["before"]).abs().max(dim=1).values
+        big = acc >= ACCUM_FLOOR * float(acc.max())
+        got["accum_all"] = got["accum"] = got["acc_max"] = 0.0
+        got["accum_halves"] = [0.0, 0.0]
     got["n_big"], got["n_ids"] = int(big.sum()), int(acc.numel())
-    got["accum_all"] = rel(c["accum"], r["accum"])
-    got["accum"] = rel(c["accum"][big], r["accum"][big])
-    got["accum_halves"] = [rel(c["accum"][big, h], r["accum"][big, h]) for h in (0, 1)]
     dr = (r["rows"] - r["before"])[big]
     got["delta"] = rel((c["rows"] - c["before"])[big], dr)
-    got["acc_max"], got["delta_max"] = float(acc.max()), float(dr.abs().max())
+    got["delta_max"] = float(dr.abs().max())
     return got
 
 
-def train_reference_check(d, cache, dev, amp, tag="check"):
+def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     """One step from one state on a CHECK_ROWS-row batch, in the compute
     dtype of ``amp``, kernel dropouts on (the counter-hash masks are the
     same everywhere) and the other dropouts off: the card's step against
@@ -1365,13 +1883,17 @@ def train_reference_check(d, cache, dev, amp, tag="check"):
     RMSNorm then divides by sqrt(eps), the row's gradients grow ~1e3-fold
     a norm (the JAX package's model does the same), and the global-norm
     clip scales every other gradient down to where AdaGrad's eps swamps
-    the table's.  So the card is held against the CPU on the rows with a
-    history whose ordered selection is the same on both sides, the whole
-    batch and all rows with a history are reported beside, and the
+    the table's.  A third kind in fp32: a ReLU input within rounding of 0
+    that takes another sign on each side sends the row's gradient down
+    another path.  So the card is held against the CPU on the rows with a
+    history whose ordered selection is the same on both sides (and, in
+    fp32, whose ReLU inputs take the same signs: ``same_relu_rows``), the
+    whole batch and all rows with a history are reported beside, and the
     kernels are held against their plain versions on one device, where
     every selection is the same, over all rows with a history.  A second
     witness: two CPU steps whose matrix products come from two libraries
-    (oneDNN's and PyTorch's own)."""
+    (oneDNN's and PyTorch's own).  ``held_only``: the two held comparisons
+    alone."""
     import torch
 
     from tossctr_tpu_torch.config import Config
@@ -1398,15 +1920,18 @@ def train_reference_check(d, cache, dev, amp, tag="check"):
                same_order=float(same_rows.double().mean()))
     nonempty = (sel["cpu"] != cfg.sequence.pad_id).any(dim=1)
     held = same_rows & nonempty
+    if bands["same_relu"] is not None:
+        n_held = int(held.sum())
+        held, dropped = same_relu_rows(((card_model, dev), (cpu_model, cpu)), batch, held)
+        got["same_relu"] = 1.0 - dropped / max(n_held, 1)
+        log(f"[{tag}] amp={amp} {dropped} of the {n_held} rows with a history and the same "
+            f"ordered selection have a ReLU input of another sign on the card than on the CPU")
 
     def rows_of(mask):
         return {k: v[mask.numpy()] for k, v in batch.items()}
 
-    log(f"[{tag}] amp={amp} global gradient norm before the clip (card, no dropout): whole "
-        f"batch {_grad_norm(cfg, card_model, init, batch, dev):.6g}; its "
-        f"{int(nonempty.sum())} rows with a non-empty history "
-        f"{_grad_norm(cfg, card_model, init, rows_of(nonempty), dev):.6g} (the clip is at "
-        f"{cfg.train.grad_clip_norm}; {int((~nonempty).sum())} rows have an empty history)")
+    if not held_only:
+        log_grad_norms(cfg, card_model, init, batch, dev, nonempty, rows_of, tag, amp)
     sides = {"card": (card_model, dev, None), "cpu": (cpu_model, cpu, None),
              "cpu, oneDNN off": (cpu_model, cpu, "oneDNN off"),
              "card, plain versions": (card_model, dev, "plain versions")}
@@ -1416,6 +1941,8 @@ def train_reference_check(d, cache, dev, amp, tag="check"):
             ("vs_cpu", held, "card", "cpu"),
             ("vs_plain", nonempty, "card", "card, plain versions"),
             ("witness", held, "cpu, oneDNN off", "cpu")]
+    if held_only:
+        runs = [r for r in runs if r[0] in ("vs_cpu", "vs_plain")]
     recs, found = {}, {}
     for label, rows, a, b in runs:
         t0 = time.time()
@@ -1439,7 +1966,8 @@ def train_reference_check(d, cache, dev, amp, tag="check"):
             f"{g['accum_halves'][0]:.3g}, {g['accum_halves'][1]:.3g}; all {g['n_ids']} ids "
             f"{g['accum_all']:.3g}), row update {g['delta']:.3g} (largest accumulator "
             f"{g['acc_max']:.3g}, largest |update| {g['delta_max']:.3g})")
-    failed = [k for k in ("select", "same_order") if not got[k] >= bands[k]]
+    failed = [k for k in ("select", "same_order", "same_relu")
+              if bands[k] is not None and not got[k] >= bands[k]]
     for pair in ("vs_cpu", "vs_plain"):
         for k, band in bands[pair].items():
             got[f"{pair} {k}"] = found[pair][k]
@@ -1447,7 +1975,9 @@ def train_reference_check(d, cache, dev, amp, tag="check"):
                 failed.append(f"{pair} {k}")
     log(f"[{tag}] one amp={amp} train step on {CHECK_ROWS} rows: selected ids shared "
         f"{got['select']:.4%} (band {bands['select']}), rows with the same ordered selection "
-        f"{got['same_order']:.4%} (band {bands['same_order']}); held: "
+        f"{got['same_order']:.4%} (band {bands['same_order']})"
+        + (f", of them with the same ReLU signs {got['same_relu']:.4%} (band "
+           f"{bands['same_relu']})" if bands["same_relu"] is not None else "") + "; held: "
         + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b})"
                                            for k, b in bands[pair].items())
                     for pair in ("vs_cpu", "vs_plain")))
@@ -1544,8 +2074,14 @@ def main() -> int:
         t0 = time.time()
         layer_launches, layer_served = layernorm_phase(tmp, man, train_cache, dev)
         layer_wall = time.time() - t0
+        t0 = time.time()
+        stream_launches = stream_phase(train_cache, dev)
+        stream_wall = time.time() - t0
         del train_cache
         torch.cuda.empty_cache()
+        t0 = time.time()
+        k120_launches, k120_served = k120_phase(tmp, dev)
+        k120_wall = time.time() - t0
         t0 = time.time()
         fold_launches, fold_served = fold_phase(tmp, man, dev)
         fold_wall = time.time() - t0
@@ -1555,8 +2091,11 @@ def main() -> int:
         # encoder kernels' in the training phase, fused_ffn's in the
         # LayerNorm phase, fused_mha's in its module check (no config serves
         # it: its serving count is the serving phase's, read there), the FM
-        # pair's in the fold phase
-        if name.startswith("fm_cross"):
+        # pair's in the fold phase, the table update's in the streaming phase's
+        # sweep mode
+        if name == "sweep_rows_add":
+            r["launches"], r["launches_serving"] = stream_launches[name], counts[name]
+        elif name.startswith("fm_cross"):
             r["launches"], r["launches_serving"] = fold_launches[name], fold_served[name]
         elif name.startswith("fused_ffn"):
             r["launches"], r["launches_serving"] = layer_launches[name], layer_served[name]
@@ -1566,9 +2105,11 @@ def main() -> int:
             r["launches"], r["launches_serving"] = train_launches[name], counts[name]
         r["launches_fold"] = fold_launches[name]
         r["launches_layernorm"] = layer_launches[name]
+        r["launches_k120"], r["launches_k120_serving"] = k120_launches[name], k120_served[name]
     total = time.time() - T_START
-    log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s and the "
-        f"LayerNorm phase {layer_wall:.1f} s of it")
+    log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s, the "
+        f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s and the "
+        f"K = 120 phase {k120_wall:.1f} s of it")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -140,18 +140,60 @@ def make_batch(d: dict, B: int = 8, seed: int = 0) -> dict:
     }
 
 
+# initialised variables by config without its kernel switches, for the
+# test process: the kernels and their plain paths hold the same
+# parameters (same names, shapes and initialisers), so a config that
+# differs from one already initialised only in those switches reuses its
+# variables (the same values a fresh init would give) instead of paying
+# the init's compile again
+_KERNEL_SWITCHES = ("use_pallas_attention", "use_pallas_ffn")
+_INIT_CACHE: dict = {}
+
+
 def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
     """The flax CTRModel the JAX package builds for ``d`` (fused-block
-    kernels on) and its initialised variables."""
+    kernels on) and its initialised variables.  The parameters do not
+    depend on the kernel switches: they are initialised once a config with
+    the switches off, on XLA's attention and FFN (whose init compiles
+    several times faster than interpret-mode Pallas), checked to fit
+    ``d``'s model leaf for leaf, and returned as host arrays."""
+    import json
+
     import jax
 
     from tossctr_tpu.config import Config
     from tossctr_tpu.train.trainer import build_model, jitted_init
 
-    cfg = Config.from_dict(copy.deepcopy(d))
-    model = build_model(cfg, dims_for(d))
-    variables = jitted_init(model, jax.random.PRNGKey(seed), batch)
-    return model, {"params": variables["params"]}
+    model = build_model(Config.from_dict(copy.deepcopy(d)), dims_for(d))
+    plain_d = copy.deepcopy(d)
+    plain_d["model"].update({k: False for k in _KERNEL_SWITCHES})
+    key = (json.dumps(plain_d, sort_keys=True), seed,
+           tuple((k, np.shape(v), str(np.asarray(v).dtype)) for k, v in sorted(batch.items())))
+    if key not in _INIT_CACHE:
+        plain = build_model(Config.from_dict(plain_d), dims_for(d))
+        _INIT_CACHE[key] = {"params": jitted_init(plain, jax.random.PRNGKey(seed), batch)["params"]}
+    variables = _INIT_CACHE[key]
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(seed), batch,
+                                               deterministic=True))
+    assert (jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), {"params": shapes["params"]})
+            == jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), variables)), \
+        "the variables do not fit the model"
+    # a copy: a JAX train step donates its state's buffers
+    return model, jax.tree_util.tree_map(np.array, variables)
+
+
+def jitted_vjp(fn, args, cotangent):
+    """-> (fn(*args), the gradients of ``cotangent`` through it), both from
+    one jitted program: run eagerly, ``jax.vjp`` of an interpret-mode
+    Pallas kernel compiles each of its primitives apart, which costs
+    several times the compile of the whole."""
+    import jax
+
+    def both(cot, *a):
+        out, vjp = jax.vjp(fn, *a)
+        return out, vjp(cot)
+
+    return jax.jit(both)(cotangent, *args)
 
 
 def port_model(d: dict, variables, device: str = "cpu"):

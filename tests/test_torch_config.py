@@ -21,8 +21,8 @@ def test_config_and_spec_match_jax():
     from tossctr_tpu.config import load_config as jax_load_config
     from tossctr_tpu.models.ctr_model import build_model_spec as jax_build_model_spec
     from tossctr_tpu_torch.config import Config, load_config
-    from tossctr_tpu_torch.config.flagship import flagship_config_dict
-    from tossctr_tpu_torch.config.schema import deep_merge
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict, v3_k120_config_dict
+    from tossctr_tpu_torch.config.schema import deep_merge, load_yaml_with_base
     from tossctr_tpu_torch.models.ctr_model import build_model_spec
 
     def loads_as_in_the_jax_package(path):
@@ -31,6 +31,12 @@ def test_config_and_spec_match_jax():
     def flagship_dict_is_the_yaml_file():
         with open(FLAGSHIP) as f:
             assert flagship_config_dict() == yaml.safe_load(f)
+
+    def v3_k120_dict_is_the_yaml_file_over_its_base():
+        path = os.path.join(os.path.dirname(FLAGSHIP), "v3_k120_s1_tpu.yaml")
+        assert v3_k120_config_dict() == load_yaml_with_base(path)
+        cfg = Config.from_dict(v3_k120_config_dict())
+        assert (cfg.sequence.top_k, cfg.sequence.tfm.n_layers) == (120, 4)
 
     def compute_dtype():
         for amp, want in (("bf16", torch.bfloat16), ("fp16", torch.bfloat16),
@@ -63,7 +69,7 @@ def test_config_and_spec_match_jax():
     checks = Checks()
     for path in sorted(glob.glob(os.path.join(ROOT, "cfgs", "*.yaml"))):
         checks.run(f"loads {os.path.basename(path)}", loads_as_in_the_jax_package, path)
-    for fn in (flagship_dict_is_the_yaml_file, compute_dtype, deep_merge_and_buckets,
-               flagship_model_spec_matches):
+    for fn in (flagship_dict_is_the_yaml_file, v3_k120_dict_is_the_yaml_file_over_its_base,
+               compute_dtype, deep_merge_and_buckets, flagship_model_spec_matches):
         checks.run(fn.__name__, fn)
     checks.done()

@@ -7,12 +7,18 @@ the card's machine:
 
 Every encoder kernel runs with dropout off and on (p = 0.1, the
 flagship's rate; the counter-hash mask is the same on the card and in
-the plain version), at flagship-like and ragged shapes: ``fused_mha`` at
-K = 12 and 61 (not multiples of 4 or 8), ``fused_ffn`` at N = 37 and 130
+the plain version), at flagship-like and ragged shapes: the four
+attention kernels at K = 12 and 61 (not multiples of 4 or 8) and at K =
+80, 120 and 152 and at a ragged K = 77 (the backwards' key-tiled
+kernels; the forwards' query tiles), ``fused_mha_qkv``'s key-tiled
+backward also at K = 13 and 64 on request,
+``fused_ffn`` at N = 37 and 130
 rows (not multiples of its 64-row tile) and F = 40 and 100 (not
 multiples of its 64-column hidden chunk); the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
-of the kernels' 4-wide tiles).  Tolerances:
+of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
+tables with duplicates, out-of-range ids, uniform and zipf ids and one
+id hot across many of the kernel's 64-position pieces.  Tolerances:
 
 * fp32: 1e-5 of the largest magnitude of each output (the same fp32
   arithmetic in another summation order);
@@ -22,7 +28,13 @@ of the kernels' 4-wide tiles).  Tolerances:
 * bf16 weight gradients (fp32 sums over the batch of bf16-rounded
   terms; FM's dU and dV, fp32 sums of bf16 inputs; ``fused_mha``'s
   dbias): 1e-2 of the largest magnitude, since a rounding point that
-  lands one ulp apart (2**-8 relative) moves one term of the sum.
+  lands one ulp apart (2**-8 relative) moves one term of the sum;
+* ``sweep_rows_add``: fp32 tables within 1e-5 of the largest magnitude,
+  bf16 ones within one ulp of each element (2**-7 relative) plus that:
+  the kernel sums a row's duplicates in fp32 in sorted order, piece by
+  piece, and the plain version with ``index_add_``'s atomics, so the
+  fp32 sums part in their last bits and a row's one rounding can land
+  one ulp apart; untouched rows are bit-equal.
 
 The backward kernels reduce their per-block partial sums in a fixed
 order, so a second call must repeat the first bit for bit.  One test
@@ -66,6 +78,8 @@ def test_cuda_kernels_match_plain_versions():
         fused_mha_qkv_bwd_reference,
         fused_mha_qkv_reference,
         fused_mha_reference,
+        sweep_rows_add,
+        sweep_rows_add_reference,
     )
 
     from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd as fm_cross_pallas_fwd_only
@@ -107,12 +121,12 @@ def test_cuda_kernels_match_plain_versions():
         assert fused_mha_qkv.launches == before + 1
         close("out", dtype, got, fused_mha_qkv_reference(*args, dropout_p=p, seed=SEED))
 
-    def attention_bwd(dtype, B, K, D, H, p):
+    def attention_bwd(dtype, B, K, D, H, p, tiled=False):
         args, do = attn_args(dtype, B, K, D, H)
         x, w, b, bias, _ = args
         before = fused_mha_qkv_bwd.launches
-        got = fused_mha_qkv_bwd(x, w, b, bias, do, H, p, SEED)
-        again = fused_mha_qkv_bwd(x, w, b, bias, do, H, p, SEED)
+        got = fused_mha_qkv_bwd(x, w, b, bias, do, H, p, SEED, tiled=tiled)
+        again = fused_mha_qkv_bwd(x, w, b, bias, do, H, p, SEED, tiled=tiled)
         torch.cuda.synchronize()
         assert fused_mha_qkv_bwd.launches == before + 2
         want = fused_mha_qkv_bwd_reference(x, w, b, bias, do, H, p, SEED)
@@ -277,9 +291,16 @@ def test_cuda_kernels_match_plain_versions():
             fused_block_tail(*ts)  # D > 64
         with pytest.raises(ValueError):
             fused_block_tail_bwd(*ts, ts[0])  # D > 64
-        q = torch.randn(2, 65, 16, device=dev)
+        q = torch.randn(2, 65, 68, device=dev)
         with pytest.raises(ValueError):
-            fused_mha_bwd(q, q, q, torch.zeros(65, 65, device=dev), q, 2)  # K > 64
+            fused_mha_bwd(q, q, q, torch.zeros(65, 65, device=dev), q, 2)  # D > 64
+        x6, w6, b6, bias6 = (torch.from_numpy(a).to(dev) for a in attn_inputs(0, K=80, D=24))
+        with pytest.raises(ValueError):  # the key-tiled kernel: dh % 4 == 0
+            fused_mha_qkv_bwd(x6, w6, b6, bias6, x6, 4)
+        table = torch.zeros(10, 6, device=dev)
+        with pytest.raises(ValueError):
+            sweep_rows_add([table], torch.zeros(3, dtype=torch.long, device=dev),
+                           [torch.zeros(3, 6, device=dev)])  # D % 4
         (x, w1, b1, w2, b2), _ = ffn_args("f32", 8, 68, 40)
         with pytest.raises(ValueError):
             fused_ffn(x, w1, b1, w2, b2)  # D > 64
@@ -290,7 +311,63 @@ def test_cuda_kernels_match_plain_versions():
         with pytest.raises(ValueError):
             fm_cross_pallas_bwd(z, U, V, g)  # H*R > 128
 
+    def sweep(dtype, V, D, n_tables, ids):
+        """sweep_rows_add against its plain version on copies of the same
+        tables: rows within one ulp, untouched rows unchanged, and a second
+        run from the same tables repeats the first bit for bit."""
+        dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        gen = torch.Generator().manual_seed(6)
+        tables = [torch.randn(V, D, generator=gen).to(dev, dt) for _ in range(n_tables)]
+        deltas = [torch.randn(ids.numel(), D, generator=gen).mul(0.05).to(dev)
+                  for _ in range(n_tables)]
+        ids = ids.to(dev)
+        got, again, want = ([t.clone() for t in tables] for _ in range(3))
+        before = sweep_rows_add.launches
+        sweep_rows_add(got, ids, deltas)
+        sweep_rows_add(again, ids, deltas)
+        torch.cuda.synchronize()
+        assert sweep_rows_add.launches == before + 2
+        sweep_rows_add_reference(want, ids, deltas)
+        ulp = 2.0 ** -7 if dtype == "bf16" else 0.0
+        touched = torch.zeros(V, dtype=torch.bool, device=dev)
+        touched[ids[(ids >= 0) & (ids < V)]] = True
+        for t0, g, a, w in zip(tables, got, again, want):
+            assert torch.equal(g, a), "sweep_rows_add changed between two calls"
+            assert torch.equal(g[~touched], t0[~touched]), "an untouched row changed"
+            err = (g.float() - w.float()).abs()
+            band = (ulp * torch.maximum(g.float().abs(), w.float().abs())
+                    + 1e-5 * float(w.float().abs().max()))
+            assert bool((err <= band).all()), f"max err {float(err.max())}"
+
+    def sweep_ids(kind, V, N):
+        gen = torch.Generator().manual_seed(7)
+        if kind == "uniform":
+            return torch.randint(0, V, (N,), generator=gen)
+        if kind == "zipf":  # zipf:1.0 over the ids, as bench.py draws them
+            w = 1.0 / torch.arange(1, V + 1, dtype=torch.float64)
+            return torch.multinomial(w, N, replacement=True, generator=gen)
+        ids = torch.randint(0, V, (N,), generator=gen)  # one id hot, a few out of range
+        ids[torch.randperm(N, generator=gen)[:N // 2]] = 17
+        ids[:5] = torch.tensor([-1, V, V + 7, -30, 2 * V])
+        return ids
+
     checks = Checks()
+    for dtype in ("f32", "bf16"):
+        for p in (0.0, P_DROP):
+            for B, K, D, H in ((6, 80, 64, 8), (4, 120, 64, 8), (3, 152, 64, 8), (5, 77, 64, 8),
+                               (4, 77, 16, 4)):
+                tag = f"{dtype} p={p} B={B} K={K} D={D} H={H}"
+                checks.run(f"attention {tag}", attention, dtype, B, K, D, H, p)
+                checks.run(f"attention bwd {tag}", attention_bwd, dtype, B, K, D, H, p)
+                checks.run(f"mha {tag}", mha, dtype, B, K, D, H, p)
+            for B, K, D, H in ((9, 64, 64, 8), (5, 13, 16, 4)):
+                tag = f"{dtype} p={p} B={B} K={K} D={D} H={H}"
+                checks.run(f"attention bwd tiled {tag}", attention_bwd, dtype, B, K, D, H, p,
+                           True)
+        for kind in ("uniform", "zipf", "hot"):
+            for n_tables, D in ((1, 128), (2, 16)):
+                checks.run(f"sweep {dtype} {kind} tables={n_tables} D={D}", sweep, dtype, 5000,
+                           D, n_tables, sweep_ids(kind, 5000, 4000))
     for dtype in ("f32", "bf16"):
         for p in (0.0, P_DROP):
             for B, K, D, H in ((64, 64, 64, 8), (9, 61, 64, 8), (5, 13, 16, 4)):

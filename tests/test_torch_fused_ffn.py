@@ -28,7 +28,7 @@ weights' dtype, db in the biases').  One test item (see
 import numpy as np
 import pytest
 
-from _torch_helpers import Checks, bf16_band, torch_threads
+from _torch_helpers import Checks, bf16_band, jitted_vjp, torch_threads
 
 P_DROP = 0.3
 SEED = 24681357
@@ -93,8 +93,8 @@ def test_fused_ffn_matches_pallas():
         jdy = jnp.asarray(dy, jnp.bfloat16) if bf else jnp.asarray(dy)
         tdy = torch.from_numpy(dy).to(targs[0].dtype)
 
-        jout, vjp = jax.vjp(lambda *a: jax_fused_ffn(*a, seed_j, p, 16, True, "hash"), *jargs)
-        jgrads = vjp(jdy)
+        jout, jgrads = jitted_vjp(lambda *a: jax_fused_ffn(*a, seed_j, p, 16, True, "hash"), jargs,
+                                  jdy)
         out = fused_ffn_reference(*targs, p, SEED)
         assert out.dtype == targs[0].dtype
         _close("y", dtype, np32(out), np32(jout))

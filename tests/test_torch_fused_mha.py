@@ -32,7 +32,7 @@ the output and the gradients of x, the bias and every parameter within
 import numpy as np
 import pytest
 
-from _torch_helpers import Checks, bf16_band, torch_threads
+from _torch_helpers import Checks, bf16_band, jitted_vjp, torch_threads
 
 P_DROP = 0.3
 SEED = 13579
@@ -102,8 +102,7 @@ def test_fused_mha_matches_pallas():
         def jfn(*a):
             return jax_fused_mha(*a, seed_j, H, p, 2, True, impl, "hash")
 
-        jout, vjp = jax.vjp(jfn, *jargs)
-        jgrads = vjp(jnp.asarray(do, jargs[0].dtype))
+        jout, jgrads = jitted_vjp(jfn, jargs, jnp.asarray(do, jargs[0].dtype))
         _close("out", dtype, np32(fused_mha_reference(*targs, H, p, SEED)), np32(jout))
         tgrads = fused_mha_bwd_reference(*targs, tdo, H, p, SEED)
         for i, name in enumerate(("dq", "dk", "dv", "dbias")):
@@ -136,13 +135,14 @@ def test_fused_mha_matches_pallas():
         x, _, _, bias, g = mha_inputs(9, K, masked_cols=2)
         jm = JaxMHA(D, H, 0.0, use_pallas=use_pallas, fuse_qkv=fuse_qkv)
         jbias = jnp.asarray(bias)[None, None]
-        variables = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), attn_bias=jbias)
+        variables = jax.jit(lambda k_, x_, b_: jm.init(k_, x_, attn_bias=b_))(
+            jax.random.PRNGKey(0), jnp.asarray(x), jbias)
 
         def jloss(params, x_, bias_):
             out = jm.apply({"params": params}, x_, attn_bias=bias_[None, None])
             return jnp.sum(out * g), out
 
-        (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
             variables["params"], jnp.asarray(x), jnp.asarray(bias))
         tm = MultiHeadSelfAttention(D, H, 0.0, use_pallas=use_pallas, fuse_qkv=fuse_qkv)
         tm.load_state_dict(flax_to_state_dict(jax.device_get(variables)), strict=True)

@@ -23,6 +23,7 @@ from _torch_helpers import LOWP_TAIL, Checks, attn_inputs, bf16_band, tail_input
 
 
 def test_kernel_modules_match_pallas():
+    import jax
     import jax.numpy as jnp
     import torch
 
@@ -37,8 +38,9 @@ def test_kernel_modules_match_pallas():
 
     def jax_attn(x, w, b, bias, H, dtype):
         cast = (lambda a: jnp.asarray(a, jnp.bfloat16)) if dtype == "bf16" else jnp.asarray
-        out = jax_fused_mha_qkv(cast(x), cast(w), jnp.asarray(b), cast(bias),
-                                jnp.zeros((1,), jnp.int32), H, 0.0, 64, True)
+        # jitted: run eagerly, an interpret-mode kernel compiles each primitive apart
+        out = jax.jit(lambda *a: jax_fused_mha_qkv(*a, H, 0.0, 64, True))(
+            cast(x), cast(w), jnp.asarray(b), cast(bias), jnp.zeros((1,), jnp.int32))
         return np.asarray(out).astype(np.float32)
 
     def torch_attn(x, w, b, bias, H, dtype, fn=fused_mha_qkv_reference):
@@ -47,10 +49,10 @@ def test_kernel_modules_match_pallas():
         return fn(t(x), t(w), torch.from_numpy(b), t(bias), H).float().numpy()
 
     def jax_tail(args, dtype):
-        out = jax_fused_block_tail(
+        out = jax.jit(lambda *a: jax_fused_block_tail(*a, 0.0, 16, True))(
             *[jnp.asarray(a, jnp.bfloat16) if (dtype == "bf16" and i in LOWP_TAIL)
               else jnp.asarray(a) for i, a in enumerate(args)],
-            jnp.zeros((1,), jnp.int32), 0.0, 16, True,
+            jnp.zeros((1,), jnp.int32),
         )
         return np.asarray(out).astype(np.float32)
 

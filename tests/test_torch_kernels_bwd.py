@@ -25,7 +25,15 @@ One test item (see ``_torch_helpers``).
 
 import numpy as np
 
-from _torch_helpers import LOWP_TAIL, Checks, attn_inputs, bf16_band, tail_inputs, torch_threads
+from _torch_helpers import (
+    LOWP_TAIL,
+    Checks,
+    attn_inputs,
+    bf16_band,
+    jitted_vjp,
+    tail_inputs,
+    torch_threads,
+)
 
 P_DROP = 0.1
 SEED = 987654321
@@ -88,8 +96,7 @@ def test_kernel_backwards_match_pallas():
             return jax_fused_mha_qkv(x_, w_, b_, bias_, seed_j, H, p, 64, True,
                                      "packed", "hash")
 
-        jout, vjp = jax.vjp(jfn, *jargs)
-        jgrads = vjp(jdo)
+        jout, jgrads = jitted_vjp(jfn, jargs, jdo)
         _close("out", dtype, np32(fused_mha_qkv_reference(*targs, H, p, SEED)), np32(jout))
         tgrads = fused_mha_qkv_bwd_reference(*targs, tdo, H, p, SEED)
         for i, name in enumerate(("dx", "dwqkv", "dbqkv", "dbias")):
@@ -114,8 +121,7 @@ def test_kernel_backwards_match_pallas():
         def jfn(*a):
             return jax_fused_block_tail(*a, seed_j, p, 16, True, "hash")
 
-        jout, vjp = jax.vjp(jfn, *jargs)
-        jgrads = vjp(jdy)
+        jout, jgrads = jitted_vjp(jfn, jargs, jdy)
         _close("y", dtype, np32(fused_block_tail_reference(*targs, p, SEED)), np32(jout))
         tgrads = fused_block_tail_bwd_reference(*targs, tdy, p, SEED)
         names = ("dx", "do", "dwout", "dbout", "dwn1", "dw1", "db1", "dw2", "db2", "dwn2")

@@ -169,9 +169,7 @@ def test_layernorm_paths_match_jax(tmp_path):
     batch = H.make_batch(d, B=8, seed=11)
     batch["y"] = (np.arange(8) % 3 == 0).astype(np.float32)
     jcfg = JConfig.from_dict(copy.deepcopy(d) | {"logging": {"log_dir": str(tmp_path)}})
-    jmodel = jtrainer.build_model(jcfg, dims)
-    variables = jtrainer.jitted_init(jmodel, jax.random.PRNGKey(0),
-                                     {k: v for k, v in batch.items() if k != "y"})
+    jmodel, variables = H.jax_model_and_variables(d, {k: v for k, v in batch.items() if k != "y"})
     # a host copy: the JAX train step donates the state's buffers
     params = jax.tree_util.tree_map(np.array, variables["params"])
 

@@ -43,7 +43,7 @@ def _jax_side(root):
     from tossctr_tpu.eval.calibration import Calibrator, TemperatureScaler
     from tossctr_tpu.infer.predict import predict_ensemble
     from tossctr_tpu.train.checkpoint import save_fold_checkpoint
-    from tossctr_tpu.train.trainer import build_model, jitted_init
+    from tossctr_tpu.train.trainer import build_model
     from tossctr_tpu_torch.config import Config
     from tossctr_tpu_torch.data.synth import write_synth_cache_for
 
@@ -53,11 +53,17 @@ def _jax_side(root):
     d["data"]["manifest_test"] = man
     jcfg = JaxConfig.from_dict(copy.deepcopy(d))
     jcache = JaxShardCache(man)
-    model = build_model(jcfg, jcache.dims)
     init_batch = jcache.gather(np.arange(8), train=False)
     init_batch.pop("ids")
+    # jitted_init, compiled once, on XLA's attention and FFN: the
+    # parameters do not depend on the kernel switches
+    # (``_torch_helpers.jax_model_and_variables``)
+    plain = copy.deepcopy(d)
+    plain["model"].update(use_pallas_attention=False, use_pallas_ffn=False)
+    plain_model = build_model(JaxConfig.from_dict(plain), jcache.dims)
+    init = jax.jit(lambda k, b: plain_model.init(k, b, deterministic=True))
     for fold in (0, 1):
-        v = jitted_init(model, jax.random.PRNGKey(fold), init_batch)
+        v = init(jax.random.PRNGKey(fold), init_batch)
         params = {"params": v["params"]}
         ema = jax.tree_util.tree_map(lambda a: (a * 1.05).astype(a.dtype), params)
         cal = Calibrator(method="temperature")

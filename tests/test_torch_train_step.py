@@ -25,7 +25,15 @@ import copy
 
 import numpy as np
 
-from _torch_helpers import Checks, dims_for, make_batch, tiny_cfg_dict, torch_batch, torch_threads
+from _torch_helpers import (
+    Checks,
+    dims_for,
+    jax_model_and_variables,
+    make_batch,
+    tiny_cfg_dict,
+    torch_batch,
+    torch_threads,
+)
 
 LR = 1e-2
 AUX_W = 0.1
@@ -70,9 +78,8 @@ def test_train_step_matches_jax():
 
     # ---- the JAX side ----
     jcfg = JConfig.from_dict(copy.deepcopy(d))
-    jmodel = jtrainer.build_model(jcfg, dims)
     init = {k: v for k, v in batches[0].items() if k != "y"}
-    variables = jtrainer.jitted_init(jmodel, jax.random.PRNGKey(0), init)
+    jmodel, variables = jax_model_and_variables(d, init)
     jtx, jsched = jtrainer.make_optimizer(jcfg, steps_per_epoch=4)
     jstate, jmask = jtrainer.make_train_state(jcfg, variables, jtx)
     jstep = jtrainer.make_train_step(jmodel, jtx, jcfg, jax.random.PRNGKey(1), ema_mask=jmask,

@@ -140,6 +140,15 @@ __device__ __forceinline__ float gelu_tanh_grad(float h) {
 // float offsets rounded up to 4 floats, so every region is 16-byte aligned
 __host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
 
+// The shared memory a block may opt in to on ``device`` (232,448 bytes on
+// an H100); 0 if the query fails.
+inline size_t smem_optin(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return 0;
+  return (size_t)v;
+}
+
 // Launch helper: raise the dynamic shared-memory cap, size a grid of at
 // most ``want`` blocks, then launch.  Returns the first CUDA error.
 template <typename Kern>

@@ -16,7 +16,10 @@
 // counter-hash dropout mask of (b, query, key, h, seed) scaled by 1/(1-p)
 // (common.cuh Dropout::attn), the mask the packed and loop kernels both
 // draw; without dropout it is 1 and is not computed.  Any K: the softmax
-// runs over the K real key columns (mha_core.cuh).
+// runs over the K real key columns (mha_core.cuh).  The queries run in
+// tiles of QT rows, the largest of {K4, 64, 32, 16, 8} whose layout fits
+// a block's shared memory (the whole row up to K = 120 in bf16 and fp32,
+// 64 rows at K = 152), so shared memory grows as QT x K, not K x K.
 //
 // What bounds it on the card: at the flagship shapes (B=8192, K=64, D=64,
 // H=8, bf16) one call reads q, k and v (201 MB) and writes the output
@@ -26,8 +29,9 @@
 // Design: fused_mha_qkv.cu without the projection; both run each head
 // through mha_core.cuh head_fwd.  Persistent blocks
 // (as many as fit on the SMs) walk batch rows; the bias stays in shared
-// memory for all of a block's rows, and a row's q, k, v and one head's
-// (K, K) scores never leave shared memory, so device memory sees q, k, v
+// memory for all of a block's rows when one tile covers the row (else a
+// tile's bias rows are staged per tile, from L2), and a row's q, k, v and
+// one head's (QT, K) scores never leave shared memory, so device memory sees q, k, v
 // once and the output once.  Products run on the CUDA cores in fp32 with
 // 4x4 register tiles for the scores and 2x1 tiles for P.V; the tensor
 // cores are the next step for speed.
@@ -40,18 +44,21 @@ using tossctr::Dropout;
 using tossctr::to_f;
 using tossctr::mha::kThreads;
 
+// Shared memory of a block, in floats: the bias rows of one query tile
+// and its scores (QT rows each), and the row's q, k (transposed) and v.
 struct Layout {
-  int K4, KS;
+  int K4, KS, QT;
   int bias, qT, kT, v, s, total;  // offsets in floats
-  __host__ __device__ Layout(int K, int D) {
+  __host__ __device__ Layout(int K, int D, int QT_) {
     K4 = align4(K);
     KS = K + 1;  // score row stride: odd, for the P.V pass
+    QT = QT_;
     bias = 0;
-    qT = bias + align4(K * K);
+    qT = bias + align4(QT * K);
     kT = qT + D * K4;
     v = kT + D * K4;
     s = v + K4 * D;
-    total = s + align4(K4 * KS);
+    total = s + align4(QT * KS);
   }
 };
 
@@ -59,19 +66,21 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                const T* __restrict__ bias, T* __restrict__ out, int B, int K, int D, int H,
-               float scale, Dropout drop) {
+               int QT, float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(K, D);
+  const Layout L(K, D, QT);
   const int dh = D / H;
   const int K4 = L.K4, KS = L.KS;
-  float* bias_s = smem + L.bias;
+  const bool resident = QT >= K;  // one tile: the bias is staged once
+  float* bias_s = smem + L.bias;  // (QT, K): the bias rows of one query tile
   float* qT = smem + L.qT;  // (D, K4): q transposed
   float* kT = smem + L.kT;  // (D, K4): k transposed
   float* v_s = smem + L.v;  // (K4, D)
-  float* s_s = smem + L.s;  // (K4, KS): one head's scores, then probabilities
+  float* s_s = smem + L.s;  // (QT, KS): one head's scores, then probabilities
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < K * K; i += kThreads) bias_s[i] = to_f<T>(bias[i]);
+  if (resident)
+    for (int i = tid; i < K * K; i += kThreads) bias_s[i] = to_f<T>(bias[i]);
 
   for (int row = blockIdx.x; row < B; row += gridDim.x) {
     const size_t off = (size_t)row * K * D;
@@ -80,26 +89,34 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     tossctr::mha::load_transposed(q + off, K, D, K4, qT);
     tossctr::mha::load_transposed(k + off, K, D, K4, kT);
     tossctr::mha::load_rows(v + off, K, D, K4, D, v_s);
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h)
-      tossctr::mha::head_fwd<T>(qT, kT, bias_s, v_s, D, s_s, KS, K, K4, D, h * dh, dh, scale,
-                                row, h, drop, outr);
+    for (int q0 = 0; q0 < K; q0 += QT) {
+      const int n = min(QT, K - q0);
+      if (!resident) {
+        __syncthreads();  // the previous tile's last head is done with bias_s
+        for (int i = tid; i < n * K; i += kThreads) bias_s[i] = to_f<T>(bias[q0 * K + i]);
+      }
+      __syncthreads();
+      for (int h = 0; h < H; ++h)
+        tossctr::mha::head_fwd<T>(qT, kT, bias_s, v_s, D, s_s, KS, q0, n, K, K4, D, h * dh, dh,
+                                  scale, row, h, drop, outr);
+    }
   }
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
            int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
-  const Layout L(K, D);
-  const size_t smem = (size_t)L.total * sizeof(float);
+  const int QT = tossctr::mha::pick_query_tile(align4(K), tossctr::smem_optin(device),
+                                               [&](int qt) { return Layout(K, D, qt); });
+  if (QT == 0) return (int)cudaErrorInvalidValue;  // no tile fits: refused before launch
+  const size_t smem = (size_t)Layout(K, D, QT).total * sizeof(float);
   auto kern = mha_fwd_kernel<T>;
   int grid = 0;
   cudaError_t e = tossctr::prepare_launch(kern, kThreads, smem, B, device, 1, &grid);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(bias), static_cast<T*>(out), B, K, D, H, scale, drop);
+      static_cast<const T*>(bias), static_cast<T*>(out), B, K, D, H, QT, scale, drop);
   return (int)cudaGetLastError();
 }
 

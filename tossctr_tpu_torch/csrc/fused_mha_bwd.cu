@@ -17,26 +17,30 @@
 //   dk_h   = round_T(round_T(ds_h * scale)^T @ q_h)
 //   dq_h   = round_T(round_T(ds_h * scale) @ k_h)
 // keep_h is the forward's counter-hash mask, regenerated here.  dbias is
-// a sum over the batch rows and heads in fp32.  Any K <= 64: the softmax
-// runs over the K real key columns (mha_core.cuh), and rows >= K add
-// nothing to dbias.
+// a sum over the batch rows and heads in fp32.  Any K: the softmax runs
+// over the K real key columns (mha_core.cuh), and rows >= K add nothing
+// to dbias.
 //
 // What bounds it on the card: at the flagship shapes (B=8192, K=64, D=64,
 // H=8, bf16) one call reads q, k, v and do (268 MB) and writes dq, dk and
 // dv (201 MB), ~140 us at 3.35 TB/s, and does ~21.5 GFLOP (~22 us on the
 // bf16 tensor cores): the floor is the memory traffic.
 //
-// Design: fused_mha_qkv_bwd.cu without the projection; both run each
-// head through mha_core.cuh head_bwd.  One persistent
-// block an SM walks batch rows; a row's q, k, v, do, one head's (K, K) P
-// and dS, and the row's dq, dk, dv never leave shared memory (dv takes
-// v's place head by head, once the head's dP is done), and dq, dk, dv
-// leave as coalesced rows at the end of the row.  dbias lives in shared
-// memory with one owner thread per entry; at the end every block writes
-// its fp32 partial sum to a scratch buffer and a second kernel
-// (common.cuh reduce_partials) adds the partials in block order, so the
-// result repeats bit for bit (fp32 atomics would not).  Products run on
-// the CUDA cores in fp32; the tensor cores are the next step for speed.
+// Design: one head at a time (mha_core.cuh head_bwd_tiled): a persistent
+// block walks batch rows, stages a head's q, k, v and do as (dh, K4) fp32
+// tensors, walks its queries in tiles of QT rows (the largest of {K4, 64,
+// 32, 16, 8} whose layout fits: the whole row up to K = 120, 64 rows at
+// K = 152), so shared memory grows as QT x K, sums dv and dk over the
+// tiles in query order, and writes the head's dq, dk, dv.  The block's
+// dbias partial lives in device memory (one read-modify-write an entry a
+// row and head, by one thread); a second kernel (common.cuh
+// reduce_partials) adds the blocks' partials in block order, so the
+// result repeats bit for bit (fp32 atomics would not).  At K = 64 this
+// runs 27% faster than a row-resident form (a row's whole q, k, v, do, P
+// and dS in 165 KB of shared memory, one block an SM): the smaller
+// per-head footprint lets two blocks share an SM.
+// Products run on the CUDA cores in fp32; the tensor cores are the next
+// step for speed.
 #include "mha_core.cuh"
 
 namespace {
@@ -47,131 +51,119 @@ using tossctr::from_f;
 using tossctr::to_f;
 using tossctr::mha::kThreads;
 
-constexpr int kMaxDim = 64;  // D <= 64 and K <= 64
+constexpr int kMaxDim = 64;  // D <= 64
 
-struct Layout {
-  int K4, KS, VS;
-  int bias, dbias, qT, kT, v, dout, dq, dk, p, ds, total;  // offsets in floats
-  __host__ __device__ Layout(int K, int D) {
+// Shared memory of the key-tiled kernel, in floats: a query tile's bias
+// rows, P and dS, and one head's seven (dh, K4) tensors.
+struct TiledLayout {
+  int K4, KS, QT;
+  int bias, p, ds, heads, total;  // offsets in floats
+  __host__ __device__ TiledLayout(int K, int dh, int QT_) {
     K4 = align4(K);
-    KS = K + 1;  // P and dS row stride
-    VS = D + 1;  // row stride of v, do, dq, dk, dv
+    KS = K + 1;
+    QT = QT_;
     bias = 0;
-    dbias = bias + align4(K * K);
-    qT = dbias + align4(K * K);
-    kT = qT + D * K4;
-    v = kT + D * K4;  // v, each head's columns replaced by dv
-    dout = v + align4(K4 * VS);
-    dq = dout + align4(K4 * VS);
-    dk = dq + align4(K4 * VS);
-    p = dk + align4(K4 * VS);
-    ds = p + align4(K4 * KS);
-    total = ds + align4(K4 * KS);
+    p = bias + align4(QT * K);
+    ds = p + align4(QT * KS);
+    heads = ds + align4(QT * KS);
+    total = heads + tossctr::mha::kHeadTensors * dh * K4;
   }
 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mha_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ bias, const T* __restrict__ dout, T* __restrict__ dq,
-               T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ partials, int B,
-               int K, int D, int H, float scale, Dropout drop) {
+mha_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ bias, const T* __restrict__ dout,
+                     T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                     float* __restrict__ partials, int B, int K, int D, int H, int QT,
+                     float scale, Dropout drop) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L(K, D);
   const int dh = D / H;
-  const int K4 = L.K4, KS = L.KS, VS = L.VS;
+  const TiledLayout L(K, dh, QT);
+  const int K4 = L.K4;
+  const bool resident = QT >= K;  // one tile: the bias is staged once
   float* bias_s = smem + L.bias;
-  float* dbias_s = smem + L.dbias;
-  float* qT = smem + L.qT;    // (D, K4): q transposed
-  float* kT = smem + L.kT;    // (D, K4): k transposed
-  float* v_s = smem + L.v;    // (K4, VS): v, each head's columns replaced by dv
-  float* do_s = smem + L.dout;
-  float* dq_s = smem + L.dq;  // fp32, rounded where written out
-  float* dk_s = smem + L.dk;
-  float* p_s = smem + L.p;    // (K4, KS): P, then round_T(P * keep)
-  float* ds_s = smem + L.ds;  // (K4, KS): dp * keep, then round_T(ds * scale)
+  const tossctr::mha::HeadTiles a(smem + L.heads, dh, K4);
+  float* dbias = partials + (size_t)blockIdx.x * K * K;  // this block's partial
   const int tid = threadIdx.x;
 
   for (int i = tid; i < K * K; i += kThreads) {
-    bias_s[i] = to_f<T>(bias[i]);
-    dbias_s[i] = 0.f;
+    dbias[i] = 0.f;
+    if (resident) bias_s[i] = to_f<T>(bias[i]);
   }
 
   for (int row = blockIdx.x; row < B; row += gridDim.x) {
     const size_t off = (size_t)row * K * D;
-    __syncthreads();  // the previous row is done with every buffer
-    tossctr::mha::load_transposed(q + off, K, D, K4, qT);
-    tossctr::mha::load_transposed(k + off, K, D, K4, kT);
-    tossctr::mha::load_rows(v + off, K, D, K4, VS, v_s);
-    tossctr::mha::load_rows(dout + off, K, D, K4, VS, do_s);
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h)
-      tossctr::mha::head_bwd<T>(qT, kT, bias_s, v_s, do_s, dq_s, dk_s, VS, p_s, ds_s, KS,
-                                dbias_s, K, K4, h * dh, dh, scale, row, h, drop);
-
-    // ---- dq, dk, dv = round_T(...), as coalesced rows ----
-    for (int i = tid; i < K * D; i += kThreads) {
-      const int r = i / D, c = i - r * D;
-      dq[off + i] = from_f<T>(dq_s[r * VS + c]);
-      dk[off + i] = from_f<T>(dk_s[r * VS + c]);
-      dv[off + i] = from_f<T>(v_s[r * VS + c]);
+    for (int h = 0; h < H; ++h) {
+      const int hd = h * dh;
+      __syncthreads();  // the previous head is done with the head's tensors
+      tossctr::mha::load_head(q + off, K, D, K4, hd, dh, a.qT);
+      tossctr::mha::load_head(k + off, K, D, K4, hd, dh, a.kT);
+      tossctr::mha::load_head(v + off, K, D, K4, hd, dh, a.vT);
+      tossctr::mha::load_head(dout + off, K, D, K4, hd, dh, a.doT);
+      tossctr::mha::head_bwd_tiled<T>(a, bias, bias_s, resident, smem + L.p, smem + L.ds, L.KS,
+                                      QT, dbias, K, K4, dh, scale, row, h, drop);
+      // ---- the head's dq, dk, dv = round_T(...) ----
+      for (int i = tid; i < K * dh; i += kThreads) {
+        const int r = i / dh, e = i - r * dh;
+        const size_t o = off + (size_t)r * D + hd + e;
+        dq[o] = from_f<T>(a.dqT[e * K4 + r]);
+        dk[o] = from_f<T>(a.dkT[e * K4 + r]);
+        dv[o] = from_f<T>(a.dvT[e * K4 + r]);
+      }
     }
   }
-
-  // ---- this block's partial dbias (K, K) ----
-  __syncthreads();
-  float* part = partials + (size_t)blockIdx.x * K * K;
-  for (int i = tid; i < K * K; i += kThreads) part[i] = dbias_s[i];
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* dout,
-           void* dq, void* dk, void* dv, float* partials, float* dbias, int blocks, int B, int K,
-           int D, int H, float scale, Dropout drop, int device, void* stream) {
-  const Layout L(K, D);
-  const size_t smem = (size_t)L.total * sizeof(float);
-  int grid = 0;  // = blocks; sets the shared-memory cap and checks that a block fits
-  cudaError_t e = tossctr::prepare_launch(mha_bwd_kernel<T>, kThreads, smem, blocks, device, 0,
-                                          &grid);
+           void* dq, void* dk, void* dv, float* partials, float* dbias, int max_blocks, int B,
+           int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
+  const int dh = D / H;
+  const int QT = tossctr::mha::pick_query_tile(align4(K), tossctr::smem_optin(device),
+                                               [&](int qt) { return TiledLayout(K, dh, qt); });
+  if (QT == 0) return (int)cudaErrorInvalidValue;  // no tile fits: refused before launch
+  const size_t smem = (size_t)TiledLayout(K, dh, QT).total * sizeof(float);
+  int grid = 0;
+  cudaError_t e = tossctr::prepare_launch(mha_bwd_tiled_kernel<T>, kThreads, smem, max_blocks,
+                                          device, 1, &grid);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mha_bwd_kernel<T><<<blocks, kThreads, smem, s>>>(
+  mha_bwd_tiled_kernel<T><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(bias), static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), partials, B, K, D, H, scale, drop);
+      static_cast<T*>(dk), static_cast<T*>(dv), partials, B, K, D, H, QT, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)tossctr::launch_reduce(partials, blocks, K * K, dbias, s);
-}
-
-bool shape_ok(int B, int K, int D, int H) {
-  return B >= 0 && K >= 1 && K <= kMaxDim && D >= 1 && D <= kMaxDim && H >= 1 && D % H == 0;
+  return (int)tossctr::launch_reduce(partials, grid, K * K, dbias, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, bias, do, dq, dk and dv
-// share it).  blocks: the grid, one block an SM (each walks batch rows
-// with a stride of the grid; a block with none writes zeros).  partials:
-// (blocks, K*K) fp32 scratch; dbias: (K, K) fp32 out.  Dropout:
+// share it).  max_blocks: the most blocks the grid may have (persistent
+// blocks, as many as fit on the SMs, each walking batch rows with a
+// stride of the grid; a block with none writes zeros).  partials:
+// (max_blocks, K*K) fp32 scratch; dbias: (K, K) fp32 out.  Dropout:
 // keep_thresh (0 = off), keep_scale, seed, as the forward got them.
-// K <= 64, D <= 64.  Returns a cudaError_t code.
+// D <= 64.  Returns a cudaError_t code; a shape whose layout does not fit
+// a block's shared memory is refused before any launch.
 extern "C" int tossctr_fused_mha_bwd(const void* q, const void* k, const void* v,
                                      const void* bias, const void* dout, void* dq, void* dk,
-                                     void* dv, void* partials, void* dbias, int blocks, int B,
-                                     int K, int D, int H, float scale, unsigned keep_thresh,
-                                     float keep_scale, unsigned seed, int dtype, int device,
-                                     void* stream) {
-  if (!shape_ok(B, K, D, H) || blocks < 1) return (int)cudaErrorInvalidValue;
+                                     void* dv, void* partials, void* dbias, int max_blocks,
+                                     int B, int K, int D, int H, float scale,
+                                     unsigned keep_thresh, float keep_scale, unsigned seed,
+                                     int dtype, int device, void* stream) {
+  if (B < 0 || K < 1 || D < 1 || D > kMaxDim || H < 1 || D % H != 0 || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
   const Dropout drop(keep_thresh, keep_scale, seed);
   float* p = static_cast<float*>(partials);
   float* g = static_cast<float*>(dbias);
   if (dtype == 0)
-    return launch<float>(q, k, v, bias, dout, dq, dk, dv, p, g, blocks, B, K, D, H, scale, drop,
-                         device, stream);
+    return launch<float>(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H, scale,
+                         drop, device, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, p, g, blocks, B, K, D, H,
+    return launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H,
                                  scale, drop, device, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,7 +25,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd",
-           "fm_cross", "fm_cross_bwd", "fused_mha", "fused_mha_bwd", "fused_ffn", "fused_ffn_bwd")
+           "fm_cross", "fm_cross_bwd", "fused_mha", "fused_mha_bwd", "fused_ffn", "fused_ffn_bwd",
+           "sweep_rows_add")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,7 +47,7 @@ SIGNATURES = {
     "fused_block_tail": ("tossctr_fused_block_tail_fwd",
                          [_P] * 11 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_mha_qkv_bwd": ("tossctr_fused_mha_qkv_bwd",
-                          [_P] * 8 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
+                          [_P] * 8 + [_I] * 5 + [_F] + _DROP + [_I, _I, _I, _P]),
     "fused_block_tail_bwd": ("tossctr_fused_block_tail_bwd",
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
     "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
@@ -56,6 +57,8 @@ SIGNATURES = {
                       [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
     "fused_ffn": ("tossctr_fused_ffn_fwd", [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_ffn_bwd": ("tossctr_fused_ffn_bwd", [_P] * 8 + [_I] * 4 + _DROP + [_I, _I, _P]),
+    # the tables as a host array of device pointers
+    "sweep_rows_add": ("tossctr_sweep_rows_add", [_P, _I] + [_P] * 5 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -128,9 +131,11 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def persistent_blocks(t: torch.Tensor) -> int:
-    """The grid of a persistent kernel on ``t``'s device: one block an SM."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+def persistent_blocks(t: torch.Tensor, per_sm: int = 1) -> int:
+    """The grid of a persistent kernel on ``t``'s device: ``per_sm`` blocks
+    an SM (a bound: the attention backwards launch as many as fit, at most
+    this many)."""
+    return per_sm * torch.cuda.get_device_properties(t.device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

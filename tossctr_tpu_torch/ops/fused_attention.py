@@ -15,6 +15,13 @@ Port of ``tossctr_tpu/ops/pallas_attention.py``:
   ``fused_mha_bwd_reference``.  ``MultiHeadSelfAttention`` with
   ``fuse_qkv`` off runs it.
 
+The kernels take any K: the forwards walk a row's queries in tiles that
+fit a block's shared memory; ``fused_mha``'s backward is key-tiled (one
+head at a time, its queries in tiles), and ``fused_mha_qkv``'s backward
+keeps a row-resident kernel for K <= 64, where it is faster, and runs
+the key-tiled one above (``csrc/mha_core.cuh``).  A shape whose layout
+fits no block is refused before any launch.
+
 Both drop attention probabilities with the counter-hash mask of the
 absolute (batch row, query, key, head) coordinates (``ops/dropout.py``
 ``attention_keep``).  The plain versions keep the Pallas kernels'
@@ -30,6 +37,13 @@ import torch
 
 from ._build import DTYPE_CODES, check_launch, load_library, persistent_blocks, stream_of
 from .dropout import attention_keep, kernel_args
+
+
+# fused_mha_qkv_bwd's row-resident kernel takes K <= ROW_RESIDENT_MAX_K,
+# the key-tiled kernels any K; the backwards launch as many persistent
+# blocks as fit, at most BWD_BLOCKS_PER_SM an SM (the partials' rows)
+ROW_RESIDENT_MAX_K = 64
+BWD_BLOCKS_PER_SM = 2
 
 
 def attention_scale(head_dim: int) -> float:
@@ -175,11 +189,15 @@ def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
 
 
 def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 0.0,
-                      seed: int = 0):
+                      seed: int = 0, tiled: bool = False):
     """-> (dx, dwqkv, dbqkv, dbias), the last three fp32 sums over the
     batch: the kernel on a CUDA tensor (per-block fp32 partials reduced in
     a fixed order, so the result repeats bit for bit), the plain version on
-    a CPU tensor."""
+    a CPU tensor.  The card runs the row-resident kernel for K <= 64 and
+    the key-tiled one above.  ``tiled`` asks for the key-tiled one at any
+    K; the model never passes it.  It stays because the choice of kernel
+    at K <= 64 rests on timing both on the same inputs, which no other
+    call can do: ``chip_smoke.py`` does so at the flagship's K each run."""
     _check(x, wqkv, bqkv, bias, n_heads, dropout_p)
     if do.shape != x.shape or do.dtype != x.dtype or do.device != x.device:
         raise ValueError(f"do must match x: {tuple(do.shape)} {do.dtype} {do.device}")
@@ -188,10 +206,13 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     tensors = (x, wqkv, bqkv, bias, do)
     _cuda_args("fused_mha_qkv_bwd", tensors)
     B, K, D = x.shape
-    if D > 64 or K > 64:
-        raise ValueError(f"fused_mha_qkv_bwd kernel takes D <= 64 and K <= 64; got D={D} K={K}")
+    if D > 64 or D % 4:
+        raise ValueError(f"fused_mha_qkv_bwd kernel takes D <= 64, D % 4 == 0; got D={D}")
+    if (tiled or K > ROW_RESIDENT_MAX_K) and (D // n_heads) % 4:
+        raise ValueError(f"the key-tiled fused_mha_qkv_bwd kernel takes a head width "
+                         f"D / n_heads divisible by 4; got {D // n_heads}")
     lib = load_library("fused_mha_qkv_bwd")
-    blocks = persistent_blocks(x)
+    blocks = persistent_blocks(x, per_sm=BWD_BLOCKS_PER_SM)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     n_part = D * 3 * D + 3 * D + K * K
@@ -200,7 +221,8 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     rc = lib.tossctr_fused_mha_qkv_bwd(
         *(t.data_ptr() for t in tensors), dx.data_ptr(), partials.data_ptr(),
         grads.data_ptr(), blocks, B, K, D, n_heads, attention_scale(D // n_heads),
-        *kernel_args(dropout_p, seed), DTYPE_CODES[x.dtype], x.device.index, stream_of(x),
+        *kernel_args(dropout_p, seed), int(tiled), DTYPE_CODES[x.dtype], x.device.index,
+        stream_of(x),
     )
     check_launch(lib, rc, "fused_mha_qkv_bwd")
     fused_mha_qkv_bwd.launches += 1
@@ -314,9 +336,9 @@ def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int
 
 def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
     """-> (dq, dk, dv, dbias), dbias the fp32 sum over the batch and the
-    heads: the kernel on a CUDA tensor (per-block fp32 partials reduced in
-    a fixed order, so the result repeats bit for bit), the plain version
-    on a CPU tensor."""
+    heads: the key-tiled kernel on a CUDA tensor (per-block fp32 partials
+    reduced in a fixed order, so the result repeats bit for bit), the
+    plain version on a CPU tensor."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype} {do.device}")
@@ -325,10 +347,10 @@ def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed:
     tensors = (q, k, v, bias, do)
     _cuda_args("fused_mha_bwd", tensors)
     B, K, D = q.shape
-    if D > 64 or K > 64:
-        raise ValueError(f"fused_mha_bwd kernel takes D <= 64 and K <= 64; got D={D} K={K}")
+    if D > 64:
+        raise ValueError(f"fused_mha_bwd kernel takes D <= 64; got D={D}")
     lib = load_library("fused_mha_bwd")
-    blocks = persistent_blocks(q)
+    blocks = persistent_blocks(q, per_sm=BWD_BLOCKS_PER_SM)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     partials = torch.empty(blocks, K * K, dtype=torch.float32, device=q.device)
     dbias = torch.empty(K, K, dtype=torch.float32, device=q.device)
@@ -367,7 +389,7 @@ def fused_mha(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0
     q, k, v and bias.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    or raise.  The backward kernel takes K <= 64 and D <= 64."""
+    or raise.  The backward kernel takes D <= 64."""
     return _FusedMHA.apply(q, k, v, bias, n_heads, float(dropout_p), int(seed))
 
 

@@ -1,30 +1,49 @@
-"""Row-sparse AdaGrad for the sequence table.
+"""Row-sparse updates of the sequence table: row-wise AdaGrad and sparse
+SGD.
 
-Port of ``tossctr_tpu/train/sparse_embed.py``, its ``exact_dedup=True``
-path: the train step reads the gradient of the gathered (B, K, 2D) rows
-(``models/dare.py`` taps), and this module
+Port of ``tossctr_tpu/train/sparse_embed.py``.  The train step reads the
+gradient of the gathered (B, K, 2D) rows (``models/dare.py`` taps), masks
+the pad row's occurrences (the pad row never changes, as torch's
+padding_idx), and updates the rows it touched in place:
 
-  1. masks the pad row's occurrences,
-  2. sorts the touched ids and sums duplicate rows' gradients in fp32,
-  3. gathers each unique row and its per-half second-moment accumulator,
-  4. applies one row-wise AdaGrad step with lazy weight decay (the pad
-     row never decays),
-  5. writes the rows and accumulators back in place.
+* ``rowwise_adagrad_update(exact_dedup=True)``: sort the touched ids, sum
+  duplicate rows' gradients in fp32, then one row-wise AdaGrad step a
+  unique row (its per-half accumulator, lazy weight decay) written back.
+  Nothing here waits on the card: the number of unique ids stays a device
+  scalar, and the padding slots of the sorted order repeat the last
+  unique row with the same values (the JAX version drops them with
+  ``mode="drop"``), so writing them is harmless.
+* ``rowwise_adagrad_update(exact_dedup=False)``, the JAX default: the
+  streaming scatter path.  Each occurrence's per-half mean g^2 is
+  scatter-added into the accumulator, each occurrence is scaled by its
+  row's post-accumulation statistic, the decay applies per occurrence,
+  and the deltas are scatter-added in the table dtype.  No sort.
+* ``sparse_sgd_update``: the same scatter, without an accumulator.
 
 The lane-fused (V, 2D) table keeps one accumulator column per D-wide
 half, so the fused update equals updating the att and rep tables apart.
-Nothing here waits on the card: the number of unique ids stays a device
-scalar, and the padding slots of the sorted order repeat the last unique
-row with the same values (the JAX version drops them with
-``mode="drop"``), so writing them is harmless.
+The scatter-adds (``scatter_add_rows``): on the CPU duplicates add one
+at a time in index order, in the destination's dtype, as XLA's scatter
+adds them; on the card with ``index_add_``'s atomics, whose order varies
+from run to run (PyTorch's sorted merge, ``index_put_`` with
+``accumulate``, costs tens of ms a step at the flagship's shapes on an
+H100: PERF.md).  An fp32 atomic add flushes a subnormal square to zero,
+which leaves the AdaGrad step unchanged: eps (1e-8) dwarfs the square
+root of any subnormal.  ``sweep=True`` (``train.table_update: sweep``)
+merges the deltas with ``ops/sweep_scatter.sweep_rows_add`` instead:
+duplicates summed in fp32 in sorted order, each row rounded once, no
+atomics; its decay always reads fresh rows of the table, as the JAX
+``rowwise_adagrad_sweep_update`` does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from ..ops import sweep_scatter
 
 _INT64_MAX = torch.iinfo(torch.int64).max
 HALVES = 2  # the att and rep halves of the lane-fused table
@@ -62,18 +81,55 @@ def dedup_rows(ids: torch.Tensor, grads: torch.Tensor,
     return torch.where(k < n_unique, uid, drop_index + k), g_uniq, n_unique
 
 
+def scatter_add_rows(dst: torch.Tensor, ids: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[ids] += src`` in ``dst``'s dtype, in place, duplicate ids
+    summed (module docstring)."""
+    if dst.device.type == "cpu":
+        dst.index_put_((ids,), src.to(dst.dtype), accumulate=True)
+    else:
+        dst.index_add_(0, ids, src.to(dst.dtype))
+
+
+def _decay_rows(table, ids, mask, rows):
+    """The fp32 rows the lazy weight decay multiplies: the forward rows when
+    given (pad-masked already), else a fresh gather, pad-masked."""
+    if rows is not None:
+        return rows.float().reshape(ids.numel(), -1)
+    return table[ids].float() * mask
+
+
 @torch.no_grad()
 def rowwise_adagrad_update(table: torch.Tensor, state: RowwiseAdagradState, ids: torch.Tensor,
                            row_grads: torch.Tensor, *, lr: float, pad_row: int,
-                           eps: float = 1e-8, weight_decay: float = 0.0) -> RowwiseAdagradState:
-    """One exact (deduplicated) row-wise AdaGrad step on ``table`` (V, W),
-    in place.  ids (...,) int and row_grads (..., W): the per-occurrence
-    gradients of the gathered rows, duplicates allowed.  ``pad_row``
-    (the sequence pad id) never changes, as torch's padding_idx."""
+                           eps: float = 1e-8, weight_decay: float = 0.0,
+                           exact_dedup: bool = True,
+                           rows: Optional[torch.Tensor] = None,
+                           sweep: bool = False) -> RowwiseAdagradState:
+    """One row-wise AdaGrad step on ``table`` (V, W), in place.  ids (...,)
+    int and row_grads (..., W): the per-occurrence gradients of the
+    gathered rows, duplicates allowed.  ``pad_row`` (the sequence pad id)
+    never changes, as torch's padding_idx.
+
+    ``exact_dedup``: sum each row's duplicates first, then one step a row
+    (textbook AdaGrad); else the streaming scatter path (module
+    docstring), which scales each occurrence by the row's shared
+    post-accumulation statistic and equals the exact step for a row that
+    occurs once.  ``rows``: the table's rows at ``ids`` as the forward
+    gathered them (pad-masked), reused by the streaming path's weight
+    decay instead of a second gather.  ``sweep``: the streaming path with
+    the rows merged by ``sweep_rows_add`` (module docstring); it takes no
+    ``rows`` and no ``exact_dedup``."""
+    if sweep and (exact_dedup or rows is not None):
+        raise ValueError("the sweep update is the streaming path: exact_dedup=False, no rows")
     V, W = table.shape
     g = row_grads.reshape(-1, W)
     ids = ids.reshape(-1)
     g = g * (ids != pad_row)[:, None].to(g.dtype)
+    if not exact_dedup:
+        row_add = _sweep_add if sweep else scatter_add_rows
+        return _streaming_adagrad(table, state, ids.long(), g.float(), lr=lr, pad_row=pad_row,
+                                  eps=eps, weight_decay=weight_decay, rows=rows,
+                                  row_add=row_add)
     uids, gu, n_unique = dedup_rows(ids, g, drop_index=V)
     # padding slots repeat the last unique slot, so their writes are
     # copies of its values
@@ -88,3 +144,40 @@ def rowwise_adagrad_update(table: torch.Tensor, state: RowwiseAdagradState, ids:
     table.index_copy_(0, uids, new_rows.to(table.dtype))
     state.accum.index_copy_(0, uids, acc_new)
     return state
+
+
+def _sweep_add(table, ids, delta):
+    sweep_scatter.sweep_rows_add([table], ids, [delta])
+
+
+def _streaming_adagrad(table, state, ids, g, *, lr, pad_row, eps, weight_decay, rows, row_add):
+    """The no-sort path of ``rowwise_adagrad_update``: ids (N,) int64, g (N,
+    W) fp32 pad-masked; ``row_add(table, ids, delta)`` adds the deltas."""
+    V, W = table.shape
+    Dh = W // HALVES
+    # each half's mean square, as the sum of its lanes over Dh
+    scatter_add_rows(state.accum, ids, (g * g).reshape(-1, HALVES, Dh).sum(dim=2) / Dh)
+    scale = (lr / (torch.sqrt(state.accum[ids]) + eps)).repeat_interleave(Dh, dim=1)
+    delta = -scale * g
+    if weight_decay:
+        mask = (ids != pad_row)[:, None].float()
+        delta = delta - (lr * weight_decay) * _decay_rows(table, ids, mask, rows)
+    row_add(table, ids, delta)
+    return state
+
+
+@torch.no_grad()
+def sparse_sgd_update(table: torch.Tensor, ids: torch.Tensor, row_grads: torch.Tensor, *,
+                      lr: float, pad_row: int, weight_decay: float = 0.0,
+                      rows: Optional[torch.Tensor] = None) -> None:
+    """Plain sparse SGD on ``table`` (V, W), in place: the pad-masked
+    per-occurrence gradients (plus the lazy decay, from ``rows`` when
+    given, as ``rowwise_adagrad_update``'s) times -lr, scatter-added in the
+    table dtype; duplicates add up in the scatter."""
+    V, W = table.shape
+    ids = ids.reshape(-1).long()
+    mask = (ids != pad_row)[:, None].float()
+    g = row_grads.float().reshape(-1, W) * mask
+    if weight_decay:
+        g = g + weight_decay * _decay_rows(table, ids, mask, rows)
+    scatter_add_rows(table, ids, -lr * g)

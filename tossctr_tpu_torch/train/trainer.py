@@ -2,7 +2,7 @@
 
 Port of ``tossctr_tpu/train/trainer.py``: ``build_model``,
 ``make_optimizer``, ``make_train_state``, ``make_train_step`` (its
-sparse-table branch, ``exact_dedup: true``), ``make_eval_step``,
+sparse-table branch, in all its table-update modes), ``make_eval_step``,
 ``run_validation``, ``train_one_fold`` and ``train_main``.  The step is
 an eager PyTorch function on the card:
 
@@ -14,7 +14,11 @@ an eager PyTorch function on the card:
   5. global-norm clip over the dense and row gradients together,
   6. AdamW on the dense parameters, lr from the warmup + cosine schedule
      at the step the update starts from,
-  7. row-wise AdaGrad with exact dedup on the sequence table,
+  7. the sequence table's row-sparse update, as the JAX sparse step
+     dispatches it: row-wise AdaGrad with exact dedup, or streaming
+     (``exact_dedup: false``, the default) through a scatter or, with
+     ``train.table_update: sweep``, through the ``sweep_rows_add`` kernel;
+     or sparse SGD,
   8. EMA of the dense parameters (the table has no shadow).
 
 The model's parameters are the state's parameters: the step updates
@@ -56,7 +60,12 @@ from .cv_split import StratifiedGroupKFold
 from .ema import EmaState, ema_params, init_ema, make_ema_mask, update_ema
 from .loss import bce_wll_style
 from .sched import make_lr_schedule
-from .sparse_embed import RowwiseAdagradState, init_rowwise_adagrad, rowwise_adagrad_update
+from .sparse_embed import (
+    RowwiseAdagradState,
+    init_rowwise_adagrad,
+    rowwise_adagrad_update,
+    sparse_sgd_update,
+)
 
 __all__ = [
     "SEQ_TABLE",
@@ -88,11 +97,8 @@ def is_sparse_mode(cfg) -> bool:
 def _check_ported(cfg) -> None:
     t = cfg.train
     unported = {
-        "train.embedding_optimizer other than rowwise_adagrad (dense-mode or sparse SGD "
-        "tables)": t.embedding_optimizer != "rowwise_adagrad",
-        "train.exact_dedup: false (the streaming scatter-add table update)":
-            not bool(t.extra.get("exact_dedup", False)),
-        "train.table_update: sweep": str(t.extra.get("table_update", "auto")) == "sweep",
+        "train.embedding_optimizer other than rowwise_adagrad or sparse_sgd (dense-mode "
+        "tables)": t.embedding_optimizer not in SPARSE_EMB_OPTS,
         "loss.apply_extra_losses (rank / logit-l2 auxiliaries)":
             bool((cfg.loss or {}).get("apply_extra_losses", False)),
     }
@@ -134,7 +140,7 @@ class TrainState:
     opt: torch.optim.Optimizer  # AdamW over dense_params(model)
     ema: Optional[EmaState]
     step: int  # global step, 1-based after the first update
-    table_opt: Dict[str, RowwiseAdagradState]
+    table_opt: Dict[str, RowwiseAdagradState]  # empty for sparse SGD
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -143,7 +149,8 @@ class TrainState:
 def make_train_state(cfg, model: CTRModel, tx) -> TrainState:
     """The initial state of an initialised ``model``: AdamW over its dense
     parameters, the EMA shadow of the parameters the EMA mask tracks, and
-    the table's (V, 2) AdaGrad accumulator."""
+    the table's optimizer state: the (V, 2) AdaGrad accumulator, none for
+    sparse SGD."""
     _check_ported(cfg)
     if not cfg.model.fused_seq_tables:
         raise NotImplementedError("not ported to tossctr_tpu_torch yet: split sequence tables")
@@ -151,7 +158,8 @@ def make_train_state(cfg, model: CTRModel, tx) -> TrainState:
     opt = torch.optim.AdamW(list(dense.values()), **tx)
     params = dict(model.named_parameters())
     ema = init_ema(params, make_ema_mask(params, ema_filter_for(cfg))) if cfg.ema.enabled else None
-    table_opt = {"emb_tables": init_rowwise_adagrad(model.dare.emb_tables)}
+    table_opt = ({"emb_tables": init_rowwise_adagrad(model.dare.emb_tables)}
+                 if cfg.train.embedding_optimizer == "rowwise_adagrad" else {})
     return TrainState(model, opt, ema, 0, table_opt)
 
 
@@ -180,6 +188,17 @@ def make_train_step(model: CTRModel, tx, cfg, base_seed: int,
     scalar: reading it is the caller's sync.  The EMA updates the
     parameters the state's shadow holds."""
     _check_ported(cfg)
+    emb_opt = cfg.train.embedding_optimizer
+    exact_dedup = bool(cfg.train.extra.get("exact_dedup", False))
+    table_update = str(cfg.train.extra.get("table_update", "auto"))
+    if table_update == "sweep" and exact_dedup:
+        raise ValueError(
+            "train.table_update: 'sweep' is incompatible with train.exact_dedup: true (the "
+            "sweep kernel implements the streaming scatter-add path) -- disable one explicitly"
+        )
+    # "auto" takes the scatter, as the JAX step does; the sweep serves the
+    # AdaGrad table only
+    use_sweep = emb_opt == "rowwise_adagrad" and table_update == "sweep"
     aux_w = float(cfg.model.qnn_alpha.aux_head_weight)
     clip = float(cfg.train.grad_clip_norm or 0.0)
     wd = float(cfg.train.weight_decay)
@@ -218,9 +237,19 @@ def make_train_step(model: CTRModel, tx, cfg, base_seed: int,
         for group in state.opt.param_groups:
             group["lr"] = lr_t
         state.opt.step()
-        rowwise_adagrad_update(model.dare.emb_tables, state.table_opt["emb_tables"],
-                               taps["sel_ids"], g_rows, lr=lr_t, pad_row=pad_id,
-                               weight_decay=wd)
+        table, ids = model.dare.emb_tables, taps["sel_ids"]
+        # the forward rows serve the lazy decay only where they lose nothing
+        # against a fresh fp32 gather: a table stored in the compute dtype
+        fwd_rows = taps["table_rows"].detach()
+        reuse = fwd_rows if table.dtype == fwd_rows.dtype else None
+        if emb_opt == "rowwise_adagrad":
+            # the sweep's decay reads fresh rows of the table, as the JAX one's
+            rowwise_adagrad_update(table, state.table_opt["emb_tables"], ids, g_rows, lr=lr_t,
+                                   pad_row=pad_id, weight_decay=wd, exact_dedup=exact_dedup,
+                                   rows=None if use_sweep else reuse, sweep=use_sweep)
+        else:
+            sparse_sgd_update(table, ids, g_rows, lr=lr_t, pad_row=pad_id, weight_decay=wd,
+                              rows=reuse)
         state.step += 1
         if state.ema is not None:
             update_ema(state.ema, state.params(), state.step,
