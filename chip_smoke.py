@@ -76,8 +76,23 @@
    (``fused_mha_qkv``) on the same parameters at the flagship shapes, the
    output and the gradients of x, the bias and every parameter, in bf16
    (one launch each of ``fused_mha`` and its backward) and in fp32.
-11. Prints the ``kernels`` JSON line (all eleven kernels), then
-   ``{"ok": true, "device": ...}``.
+11. Scatter-probe phase: ``python -m tossctr_tpu_torch.exp.scatter_probe``'s
+   measurements on its three tables (the JAX probe's (10M, 64) bf16 with
+   245,760 ids, the flagship's (10M, 128) with 524,288 uniform and with
+   524,288 zipf:1.0 ids): ``index_add_``,
+   the dense and the sparse table sweep at W = 1024, 4096, 16384, and
+   ``sweep_rows_add``, timed with the launch counts read around them;
+   then the two sweeps bit-equal to their plain versions on each table.
+12. Dropout-check phase: ``python -m
+   tossctr_tpu_torch.exp.hw_dropout_device_check`` at the flagship
+   geometry: the mask dumps bit-equal to the plain masks, the eight
+   dropping encoder kernels in fp32 against a float64 oracle on the
+   dumped masks (outputs and every gradient), the keep rates and the
+   independence of the decisions within 1e-3, and the persistent kernels'
+   results against a grid of a few blocks; the dumps timed.
+13. Prints the ``kernels`` JSON line (the thirteen rows' kernels: the
+   eleven ported kernels, the two table sweeps and the two mask dumps),
+   then ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line.  Scratch files live in a
 temporary directory under ``build/`` that is removed at exit.
@@ -98,10 +113,16 @@ import time
 
 import numpy as np
 
+from tossctr_tpu_torch.exp._timing import (
+    PEAK_BF16_FLOPS,
+    PEAK_BYTES_PER_S,
+    PEAK_FP32_FLOPS,
+    cuda_time_ms,
+    log,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.time()
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 N_ROWS = 8192 * 3 + 4096  # 3.5 batches: the last one is partial
 N_NUM = 82  # numeric features (and as many isna masks), as in bench.py
 N_FOLDS = 2
@@ -136,6 +157,10 @@ LAYER_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_ffn", "fused_ffn_b
 # and the rows' update over the ids whose accumulator is >= ACCUM_FLOOR of
 # the largest (the others carry a gradient below AdaGrad's eps).
 ACCUM_FLOOR = 1e-6
+# the bf16 step's fp32 witness: the card's distance from the fp32 step may
+# be at most this many times the CPU's (both are bf16 rounding; a card
+# path that rounded more coarsely than the CPU's would exceed it)
+FP32_WITNESS_RATIO = 1.5
 _HELD = ("loss", "grads", "grad_tensor", "accum", "delta")
 CHECK_BANDS = {
     "bf16": dict(select=0.999, same_order=0.3, same_relu=None,
@@ -147,25 +172,6 @@ CHECK_BANDS = {
 }
 
 
-def log(*a):
-    print(*a, flush=True)
-
-
-def cuda_time_ms(fn, iters=20, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bf16_tolerance(ref) -> float:
     """3 bf16 ulps of the output's largest magnitude: the kernel and the
     plain version sum in other orders, so each bf16 rounding point can
@@ -174,8 +180,8 @@ def bf16_tolerance(ref) -> float:
     return 3.0 * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_BF16_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, peak_ops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1686,6 +1692,110 @@ def mha_module_check(cfg, dev):
     return counts
 
 
+HASH_OPS = 17  # integer operations a mask element: four products and adds, fmix32, compare
+
+
+def scatter_probe_phase(dev):
+    """The scatter probe (``tossctr_tpu_torch.exp.scatter_probe``) on its
+    three tables, timed with the launch counts read around it, then each of
+    its kernels against its plain version on each table, outside the
+    counted run.  -> the ``kernels`` rows of the two sweeps."""
+    import torch
+
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    sp = importlib.import_module("tossctr_tpu_torch.exp.scatter_probe")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    recs = [r for tag in sp.TABLES for r in sp.run_table(tag, dev, check=False)]
+    launches = launch_counts()
+    chain = sp.ITERS + sp.WARMUP  # launches of one timed chain
+    per = len(sp.TABLES) * len(sp.WIDTHS) * chain
+    expected = {k: per if k in ("dense_sweep", "sparse_sweep") else
+                len(sp.TABLES) * chain if k == "sweep_rows_add" else 0 for k in launches}
+    log(f"[scatter probe] launches during the probe: {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"scatter probe launches {launches} != {expected}")
+    for tag, spec in sp.TABLES.items():
+        table, ids, delta = sp.make_inputs(*spec, dev)
+        sp.check_table(table, ids, delta)
+        log(f"[scatter probe] {tag}: dense_sweep and sparse_sweep bit-equal to their plain "
+            f"versions at W = {sp.WIDTHS} (sparse: untouched blocks unchanged, padding repeats "
+            f"add nothing); sweep_rows_add within one bf16 ulp")
+        del table, ids, delta
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, probe, replaces in (("dense_sweep", "B", 62), ("sparse_sweep", "C", 107)):
+        cases = [r for r in recs if r["probe"] == probe]
+        head = next(r for r in cases if r["table"] == "flagship" and r["W"] == 1024)
+        rows[name] = dict(
+            name=name, route="cuda", source="tossctr_tpu_torch/csrc/table_sweep.cu",
+            replaces=f"exp/scatter_probe.py:{replaces}", max_abs_err=0.0, ms=head["ms"],
+            plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by="bytes",
+            library_ms=head["library_ms"], library_call=head["library_call"],
+            headline="flagship table (10M, 128) bf16, W = 1024", cases=cases,
+            scatter_baseline=[r for r in recs if r["probe"] in "AD"])
+    return rows, launches
+
+
+def dropout_check_phase(dev):
+    """The dropout-mask device check (``tossctr_tpu_torch.exp.
+    hw_dropout_device_check``) at the flagship geometry, with the launch
+    counts read around it; then the two dump kernels against their plain
+    masks and timed, outside the counted run.  -> the ``kernels`` rows of
+    the two dumps."""
+    import torch
+
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.ops.dropout import (
+        attention_keep,
+        dump_attention_keep,
+        dump_ffn_keep,
+        ffn_keep,
+    )
+
+    chk = importlib.import_module("tossctr_tpu_torch.exp.hw_dropout_device_check")
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    report = chk.run_geometry("flagship", dev)
+    launches = launch_counts()
+    # two seeds of each mask; each kernel once against the oracle, and the
+    # persistent ones twice more (two grids)
+    persistent = ("fused_mha_qkv", "fused_mha", "fused_mha_qkv_bwd", "fused_mha_bwd",
+                  "fused_block_tail_bwd", "fused_ffn_bwd")
+    expected = {k: 2 if k.startswith("dump_") else 3 if k in persistent else
+                1 if k in ("fused_block_tail", "fused_ffn") else 0 for k in launches}
+    log(f"[dropout check] launches during the check: {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"dropout check launches {launches} != {expected}")
+    geo = report["geometry"]
+    B, K, H, N, F = geo["B"], geo["K"], geo["H"], geo["N"], geo["F"]
+    rows = {}
+    for name, dump, plain, args, replaces in (
+            ("dump_attention_keep", dump_attention_keep, attention_keep,
+             (B, K, H, geo["p_attn"], DROP_SEED), 61),
+            ("dump_ffn_keep", dump_ffn_keep, ffn_keep, (N, F, geo["p_ffn"], DROP_SEED), 133)):
+        got = dump(*args, dev)
+        want = plain(*args, device=dev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        b_ms, b_by = bound_ms(got.numel() * 4, got.numel() * HASH_OPS, PEAK_FP32_FLOPS)
+        rows[name] = dict(
+            name=name, route="cuda", source="tossctr_tpu_torch/csrc/dropout_dump.cu",
+            replaces=f"exp/hw_dropout_device_check.py:{replaces}", max_abs_err=0.0,
+            shape=list(got.shape), ms=cuda_time_ms(lambda: dump(*args, dev), iters=10),
+            plain_ms=cuda_time_ms(lambda: plain(*args, device=dev), iters=3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            check=report if name == "dump_attention_keep" else None)
+        log(f"[dropout check] {name} {tuple(got.shape)}: bit-equal to its plain version; "
+            f"{rows[name]['ms']:.4f} ms, plain {rows[name]['plain_ms']:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
+        del got, want
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
 @contextlib.contextmanager
 def plain_versions_on_card():
     """The encoder kernels' and the table update's wrappers swapped for
@@ -1892,8 +2002,11 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     kernels are held against their plain versions on one device, where
     every selection is the same, over all rows with a history.  A second
     witness: two CPU steps whose matrix products come from two libraries
-    (oneDNN's and PyTorch's own).  ``held_only``: the two held comparisons
-    alone."""
+    (oneDNN's and PyTorch's own).  In bf16 two more (``bf16_witnesses``):
+    each side's step against the card's fp32 step, the card held to no
+    more than FP32_WITNESS_RATIO times the CPU's distance from it; and the
+    card's step with cuBLAS's reduced-precision bf16 reductions off.
+    ``held_only``: the two held comparisons alone."""
     import torch
 
     from tossctr_tpu_torch.config import Config
@@ -1966,6 +2079,9 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
             f"{g['accum_halves'][0]:.3g}, {g['accum_halves'][1]:.3g}; all {g['n_ids']} ids "
             f"{g['accum_all']:.3g}), row update {g['delta']:.3g} (largest accumulator "
             f"{g['acc_max']:.3g}, largest |update| {g['delta_max']:.3g})")
+    if amp == "bf16" and not held_only:
+        got.update(bf16_witnesses(d, cfg, cache.dims, batch, init, (card_model, cpu_model), sel,
+                                  held, recs, dev, tag))
     failed = [k for k in ("select", "same_order", "same_relu")
               if bands[k] is not None and not got[k] >= bands[k]]
     for pair in ("vs_cpu", "vs_plain"):
@@ -1981,9 +2097,68 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
         + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b})"
                                            for k, b in bands[pair].items())
                     for pair in ("vs_cpu", "vs_plain")))
+    if amp == "bf16" and not held_only and not got["fp32 ratio"] <= FP32_WITNESS_RATIO:
+        failed.append("fp32 ratio")
     if failed:
         raise AssertionError(f"the card's {amp} train step disagrees: {failed}")
     return got
+
+
+def bf16_witnesses(d, cfg, dims, batch, init, models, sel, held, recs, dev, tag):
+    """How far the card's bf16 step lands from the CPU's, set beside how far
+    each lands from the fp32 step (the card's, which agrees with the
+    CPU's fp32 step within CHECK_BANDS["none"]), on the held rows whose
+    fp32 selection is theirs too; and the card's step with
+    ``allow_bf16_reduced_precision_reduction`` off against the CPU's on the
+    held rows.  Two bf16 steps that each land about as far from fp32 as
+    they land from each other part by rounding order; a card step much
+    farther from fp32 than the CPU's would be a fault of the card's
+    path.  -> the numbers, by name."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.train.trainer import build_model
+
+    card_model, cpu_model = models
+    cpu = torch.device("cpu")
+    f_cfg = Config.from_dict({**copy.deepcopy(d), "amp": "none"})
+    f_model = build_model(f_cfg, dims, dev)
+    f_model.load_state_dict(init)
+    rows = held & (selected_ids(f_model, to_device(batch, dev)).cpu() == sel["cpu"]).all(dim=1)
+    sub = {k: v[rows.numpy()] for k, v in batch.items()}
+    ids = torch.unique(sel["cpu"][rows])
+    ids = ids[ids != cfg.sequence.pad_id]
+    card = _step_record(cfg, card_model, init, sub, dev, ids)
+    on_cpu = _step_record(cfg, cpu_model, init, sub, cpu, ids)
+    truth = _step_record(f_cfg, f_model, init, sub, dev, ids)
+    del f_model
+    torch.cuda.empty_cache()
+    gc, gp, gx = (_compare_steps(a, b) for a, b in ((card, truth), (on_cpu, truth),
+                                                    (card, on_cpu)))
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        ids_h = torch.unique(sel["card"][held])
+        ids_h = ids_h[torch.isin(ids_h, sel["cpu"][held]) & (ids_h != cfg.sequence.pad_id)]
+        held_rows = {k: v[held.numpy()] for k, v in batch.items()}
+        exact = _step_record(cfg, card_model, init, held_rows, dev, ids_h)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    key = tuple(held.tolist())
+    gr = _compare_steps(exact, recs[("cpu", key)])
+    g_on = _compare_steps(recs[("card", key)], recs[("cpu", key)])
+    out = {"fp32 card": gc["grads"], "fp32 cpu": gp["grads"], "fp32 card vs cpu": gx["grads"],
+           "fp32 ratio": gc["grads"] / gp["grads"], "rpr off vs_cpu": gr["grads"]}
+    log(f"[{tag}] amp=bf16 fp32 witness ({int(rows.sum())} rows whose fp32 selection agrees "
+        f"too): dense gradients |diff|/|grad| card bf16 vs the card's fp32 step "
+        f"{gc['grads']:.4g}, CPU bf16 vs it {gp['grads']:.4g}, card vs CPU {gx['grads']:.4g} "
+        f"(the card at {out['fp32 ratio']:.3f} of the CPU's distance, band "
+        f"{FP32_WITNESS_RATIO}); loss {gc['loss']:.3g} / {gp['loss']:.3g}, accumulator "
+        f"{gc['accum']:.3g} / {gp['accum']:.3g}, row update {gc['delta']:.3g} / "
+        f"{gp['delta']:.3g}")
+    log(f"[{tag}] amp=bf16 with cuBLAS's reduced-precision bf16 reductions off: vs_cpu dense "
+        f"gradients {gr['grads']:.4g} (on: {g_on['grads']:.4g})")
+    return out
 
 
 def main() -> int:
@@ -2021,6 +2196,14 @@ def main() -> int:
     kernels = kernel_phase(base_cfg, dev)
     torch.cuda.empty_cache()
     module_launches = mha_module_check(base_cfg, dev)
+    t0 = time.time()
+    probe_rows, probe_launches = scatter_probe_phase(dev)
+    kernels.update(probe_rows)
+    probe_wall = time.time() - t0
+    t0 = time.time()
+    dump_rows, dump_launches = dropout_check_phase(dev)
+    kernels.update(dump_rows)
+    dump_wall = time.time() - t0
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.path.join(ROOT, "build")) as tmp:
@@ -2092,8 +2275,13 @@ def main() -> int:
         # LayerNorm phase, fused_mha's in its module check (no config serves
         # it: its serving count is the serving phase's, read there), the FM
         # pair's in the fold phase, the table update's in the streaming phase's
-        # sweep mode
-        if name == "sweep_rows_add":
+        # sweep mode, the table sweeps' in the scatter probe, the mask dumps'
+        # in the dropout check
+        if name in probe_rows:
+            r["launches"], r["launches_serving"] = probe_launches[name], counts[name]
+        elif name in dump_rows:
+            r["launches"], r["launches_serving"] = dump_launches[name], counts[name]
+        elif name == "sweep_rows_add":
             r["launches"], r["launches_serving"] = stream_launches[name], counts[name]
         elif name.startswith("fm_cross"):
             r["launches"], r["launches_serving"] = fold_launches[name], fold_served[name]
@@ -2108,8 +2296,9 @@ def main() -> int:
         r["launches_k120"], r["launches_k120_serving"] = k120_launches[name], k120_served[name]
     total = time.time() - T_START
     log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s, the "
-        f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s and the "
-        f"K = 120 phase {k120_wall:.1f} s of it")
+        f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s, the "
+        f"K = 120 phase {k120_wall:.1f} s, the scatter probe {probe_wall:.1f} s and the "
+        f"dropout check {dump_wall:.1f} s of it")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,13 @@ multiples of its 64-column hidden chunk); the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
 of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
 tables with duplicates, out-of-range ids, uniform and zipf ids and one
-id hot across many of the kernel's 64-position pieces.  Tolerances:
+id hot across many of the kernel's 64-position pieces; the scatter
+probe's two table sweeps on bf16 tables whose size is and is not a
+multiple of a (16, W) block, the sparse one over lists with padding
+repeats, ids outside the table and none at all; the dropout-mask dump
+kernel at the attention and FFN geometries and ragged shapes; and the
+persistent kernels at a grid of a few blocks against their default
+grid.  Tolerances:
 
 * fp32: 1e-5 of the largest magnitude of each output (the same fp32
   arithmetic in another summation order);
@@ -34,12 +40,20 @@ id hot across many of the kernel's 64-position pieces.  Tolerances:
   the kernel sums a row's duplicates in fp32 in sorted order, piece by
   piece, and the plain version with ``index_add_``'s atomics, so the
   fp32 sums part in their last bits and a row's one rounding can land
-  one ulp apart; untouched rows are bit-equal.
+  one ulp apart; untouched rows are bit-equal;
+* the table sweeps and the mask dumps: bit-equal to their plain versions
+  (one fp32 add and one rounding an element; the same integer hash);
+* a persistent kernel at another grid: outputs and activation gradients
+  bit-equal (a row's arithmetic does not depend on the block that takes
+  it), fp32 weight-gradient sums within 1e-5 of the largest magnitude
+  (their per-block partials regroup).
 
 The backward kernels reduce their per-block partial sums in a fixed
 order, so a second call must repeat the first bit for bit.  One test
 item (see ``_torch_helpers``).
 """
+
+import importlib
 
 import pytest
 
@@ -81,6 +95,8 @@ def test_cuda_kernels_match_plain_versions():
         sweep_rows_add,
         sweep_rows_add_reference,
     )
+    from tossctr_tpu_torch.ops import dropout as dropout_masks
+    from tossctr_tpu_torch.ops import table_sweep
 
     from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd as fm_cross_pallas_fwd_only
 
@@ -351,7 +367,90 @@ def test_cuda_kernels_match_plain_versions():
         ids[:5] = torch.tensor([-1, V, V + 7, -30, 2 * V])
         return ids
 
+    def table_sweeps(V, D, W, blocks):
+        """dense_sweep and sparse_sweep against their plain versions on
+        copies of one bf16 table, bit for bit, one launch each (none for
+        an empty list)."""
+        gen = torch.Generator().manual_seed(8)
+        table = torch.randn(V, D, generator=gen).mul(0.01).to(dev, torch.bfloat16)
+        got, want = table.clone(), table.clone()
+        before = table_sweep.dense_sweep.launches
+        table_sweep.dense_sweep(got, W)
+        torch.cuda.synchronize()
+        assert table_sweep.dense_sweep.launches == before + 1
+        table_sweep.dense_sweep_reference(want, W)
+        assert torch.equal(got, want), "dense_sweep"
+        blocks = torch.tensor(blocks, dtype=torch.int32, device=dev)
+        got, want = table.clone(), table.clone()
+        before = table_sweep.sparse_sweep.launches
+        table_sweep.sparse_sweep(got, W, blocks)
+        torch.cuda.synchronize()
+        assert table_sweep.sparse_sweep.launches == before + (1 if blocks.numel() else 0)
+        table_sweep.sparse_sweep_reference(want, W, blocks)
+        assert torch.equal(got, want), "sparse_sweep"
+        if blocks.numel() > 1:  # out of order: refused before a launch, as the plain version
+            before = table_sweep.sparse_sweep.launches
+            with pytest.raises(ValueError, match="ascending"):
+                table_sweep.sparse_sweep(got, W, blocks.flip(0))
+            blocks[0] = blocks[-1] + 1  # the list swept above, changed in place
+            with pytest.raises(ValueError, match="ascending"):
+                table_sweep.sparse_sweep(got, W, blocks)
+            assert table_sweep.sparse_sweep.launches == before
+
+    def mask_dumps(B, K, H, N, F, p, seed):
+        before = (dropout_masks.dump_attention_keep.launches,
+                  dropout_masks.dump_ffn_keep.launches)
+        a = dropout_masks.dump_attention_keep(B, K, H, p, seed, dev)
+        f = dropout_masks.dump_ffn_keep(N, F, p, seed, dev)
+        torch.cuda.synchronize()
+        assert (dropout_masks.dump_attention_keep.launches,
+                dropout_masks.dump_ffn_keep.launches) == (before[0] + 1, before[1] + 1)
+        assert torch.equal(a, dropout_masks.attention_keep(B, K, H, p, seed, device=dev)), \
+            "attention mask"
+        assert torch.equal(f, dropout_masks.ffn_keep(N, F, p, seed, device=dev)), "ffn mask"
+
+    def grid_invariance(dtype, B, K, D, H, F, blocks):
+        """The persistent kernels at ``blocks`` blocks against their default
+        grid: outputs and activation gradients bit-equal, weight gradients
+        within 1e-5 of the largest."""
+        fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+        ff = importlib.import_module("tossctr_tpu_torch.ops.fused_ffn")
+        (x, w, b, bias, _), do = attn_args(dtype, B, K, D, H)
+        q, k, v = (torch.randn_like(x.float()).to(x.dtype) for _ in range(3))
+        tail, dy = tail_args(dtype, B * K, D, F)
+        cases = (
+            (lambda **kw: (fa.fused_mha_qkv_fwd(x, w, b, bias, H, P_DROP, SEED, **kw),), 1),
+            (lambda **kw: (fa.fused_mha_fwd(q, k, v, bias, H, P_DROP, SEED, **kw),), 1),
+            (lambda **kw: fa.fused_mha_qkv_bwd(x, w, b, bias, do, H, P_DROP, SEED, **kw), 1),
+            (lambda **kw: fa.fused_mha_bwd(q, k, v, bias, do, H, P_DROP, SEED, **kw), 3),
+            (lambda **kw: ff.fused_block_tail_bwd(*tail, dy, P_DROP, SEED, **kw), 2),
+            (lambda **kw: ff.fused_ffn_bwd(tail[0], tail[5], tail[6], tail[7], dy, P_DROP, SEED,
+                                           **kw), 1),
+        )
+        for fn, n_act in cases:
+            for i, (u, w_) in enumerate(zip(fn(), fn(blocks=blocks))):
+                if i < n_act:
+                    assert torch.equal(u, w_), f"an activation moved with the grid ({i})"
+                else:
+                    close(f"weight gradient {i}", "f32", w_, u)
+
     checks = Checks()
+    for V, D, W, blocks in ((4096, 64, 1024, [0, 3, 7, 7, 7]),  # whole blocks; padding repeats
+                            (4103, 64, 1024, [1, 16, 16, 16]),  # a partial last block, listed
+                            (5000, 128, 4096, [2, 9, 40]),  # 9 whole blocks: 40 is outside
+                            (4096, 64, 16384, []),  # an empty list
+                            (37, 16, 1024, [0])):  # one partial block
+        checks.run(f"table sweeps V={V} D={D} W={W} {blocks}", table_sweeps, V, D, W, blocks)
+    for B, K, H, N, F, p, seed in ((64, 12, 8, 128, 256, 0.3, 1234),
+                                   (9, 64, 8, 577, 384, 0.1, 2**31 - 2),
+                                   (5, 13, 4, 37, 40, 0.15, 7)):
+        checks.run(f"mask dumps B={B} K={K} H={H} N={N} F={F}", mask_dumps, B, K, H, N, F, p,
+                   seed)
+    for dtype in ("f32", "bf16"):
+        checks.run(f"grid invariance {dtype} K=64", grid_invariance, dtype, 300, 64, 64, 8, 384,
+                   5)
+        checks.run(f"grid invariance {dtype} K=120", grid_invariance, dtype, 40, 120, 64, 8, 384,
+                   3)
     for dtype in ("f32", "bf16"):
         for p in (0.0, P_DROP):
             for B, K, D, H in ((6, 80, 64, 8), (4, 120, 64, 8), (3, 152, 64, 8), (5, 77, 64, 8),

@@ -105,14 +105,16 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int B,
-           int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
+           int K, int D, int H, float scale, Dropout drop, int max_blocks, int device,
+           void* stream) {
   const int QT = tossctr::mha::pick_query_tile(align4(K), tossctr::smem_optin(device),
                                                [&](int qt) { return Layout(K, D, qt); });
   if (QT == 0) return (int)cudaErrorInvalidValue;  // no tile fits: refused before launch
   const size_t smem = (size_t)Layout(K, D, QT).total * sizeof(float);
   auto kern = mha_fwd_kernel<T>;
   int grid = 0;
-  cudaError_t e = tossctr::prepare_launch(kern, kThreads, smem, B, device, 1, &grid);
+  const int want = max_blocks > 0 && max_blocks < B ? max_blocks : B;
+  cudaError_t e = tossctr::prepare_launch(kern, kThreads, smem, want, device, 1, &grid);
   if (e != cudaSuccess) return (int)e;
   kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -124,18 +126,24 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, bias and out share it).
 // Dropout: keep_thresh (0 = off), keep_scale, seed (common.cuh Dropout).
-// Returns a cudaError_t code, 0 on success.
+// max_blocks: the most blocks the persistent grid may have (0: as many as
+// fit on the SMs; the output does not depend on it).  Returns a
+// cudaError_t code, 0 on success.
 extern "C" int tossctr_fused_mha_fwd(const void* q, const void* k, const void* v,
                                      const void* bias, void* out, int B, int K, int D, int H,
                                      float scale, unsigned keep_thresh, float keep_scale,
-                                     unsigned seed, int dtype, int device, void* stream) {
-  if (B < 0 || K < 1 || D < 1 || H < 1 || D % H != 0) return (int)cudaErrorInvalidValue;
+                                     unsigned seed, int max_blocks, int dtype, int device,
+                                     void* stream) {
+  if (B < 0 || K < 1 || D < 1 || H < 1 || D % H != 0 || max_blocks < 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Dropout drop(keep_thresh, keep_scale, seed);
   if (dtype == 0)
-    return launch<float>(q, k, v, bias, out, B, K, D, H, scale, drop, device, stream);
+    return launch<float>(q, k, v, bias, out, B, K, D, H, scale, drop, max_blocks, device,
+                         stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bias, out, B, K, D, H, scale, drop, device, stream);
+    return launch<__nv_bfloat16>(q, k, v, bias, out, B, K, D, H, scale, drop, max_blocks,
+                                 device, stream);
   return (int)cudaErrorInvalidValue;
 }
 

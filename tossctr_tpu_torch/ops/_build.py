@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = ("fused_mha_qkv", "fused_block_tail", "fused_mha_qkv_bwd", "fused_block_tail_bwd",
            "fm_cross", "fm_cross_bwd", "fused_mha", "fused_mha_bwd", "fused_ffn", "fused_ffn_bwd",
-           "sweep_rows_add")
+           "sweep_rows_add", "table_sweep", "dropout_dump")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,14 +36,17 @@ NVCC_FLAGS = [
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # dropout arguments of every entry point: keep threshold, keep scale, seed
 _DROP = [_U, _F, _U]
 # each library's C entry point and its argument types: pointers and the
 # stream as c_void_p (ctypes would otherwise pass them as 32-bit ints),
-# sizes as c_int; each returns a cudaError_t code
+# sizes as c_int; each returns a cudaError_t code.  The persistent
+# kernels take the most blocks their grid may have (the attention
+# forwards: 0 for as many as fit on the SMs)
 SIGNATURES = {
     "fused_mha_qkv": ("tossctr_fused_mha_qkv_fwd",
-                      [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _P]),
+                      [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _I, _P]),
     "fused_block_tail": ("tossctr_fused_block_tail_fwd",
                          [_P] * 11 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_mha_qkv_bwd": ("tossctr_fused_mha_qkv_bwd",
@@ -52,13 +55,16 @@ SIGNATURES = {
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
     "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
     "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I, _I, _P]),
-    "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _P]),
+    "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _I, _P]),
     "fused_mha_bwd": ("tossctr_fused_mha_bwd",
                       [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
     "fused_ffn": ("tossctr_fused_ffn_fwd", [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_ffn_bwd": ("tossctr_fused_ffn_bwd", [_P] * 8 + [_I] * 4 + _DROP + [_I, _I, _P]),
     # the tables as a host array of device pointers
     "sweep_rows_add": ("tossctr_sweep_rows_add", [_P, _I] + [_P] * 5 + [_I] * 5 + [_P]),
+    # a NULL block list sweeps every block
+    "table_sweep": ("tossctr_table_sweep", [_P, _L, _I, _F, _P, _I, _I, _P]),
+    "dropout_dump": ("tossctr_dropout_dump", [_P] + [_I] * 4 + _DROP + [_I, _P]),
 }
 
 _lock = threading.Lock()
@@ -131,10 +137,15 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def persistent_blocks(t: torch.Tensor, per_sm: int = 1) -> int:
+def persistent_blocks(t: torch.Tensor, per_sm: int = 1, blocks=None) -> int:
     """The grid of a persistent kernel on ``t``'s device: ``per_sm`` blocks
     an SM (a bound: the attention backwards launch as many as fit, at most
-    this many)."""
+    this many), or ``blocks`` where the caller names it (a grid of a few
+    blocks, to show that a kernel's results do not depend on its grid)."""
+    if blocks is not None:
+        if blocks < 1:
+            raise ValueError(f"a grid needs at least one block, got {blocks}")
+        return int(blocks)
     return per_sm * torch.cuda.get_device_properties(t.device).multi_processor_count
 
 

@@ -21,12 +21,20 @@ itself falls back to this hash on every non-TPU backend
 The torch versions hash in int64 and mask with ``& 0xFFFFFFFF`` after
 each multiply: the low 32 bits stay right even where the int64 product
 wraps, and torch's uint32 arithmetic is incomplete on the CPU.
+
+``dump_attention_keep`` / ``dump_ffn_keep`` write the masks on the card
+through kernel ``csrc/dropout_dump.cu``, which calls the hash functions
+the eight dropping encoder kernels call (the port of
+``exp/hw_dropout_device_check.py``'s two mask dumps); their plain
+versions are ``attention_keep`` / ``ffn_keep``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ._build import check_launch, load_library, stream_of
 
 # murmur3-style mixing constants of pallas_attention.py
 MIX_R = 0x9E3779B1
@@ -95,6 +103,49 @@ def ffn_keep(N: int, F: int, p: float, seed: int, device=None, row0: int = 0) ->
     c = _term(ar(F), MIX_Q)[None, :]
     s = (int(seed) & _M32) * MIX_S & _M32
     return _keep((r + c + s) & _M32, p)
+
+
+def _dump(kind: int, rows: int, K: int, H: int, p: float, seed: int, device):
+    if not 0.0 < p < 1.0:
+        raise ValueError(f"a mask dump needs 0 < p < 1, got {p}")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError(f"dropout_dump: unsupported device {device}")
+    shape = (rows, H, K, K) if kind == 0 else (rows, K)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    lib = load_library("dropout_dump")
+    rc = lib.tossctr_dropout_dump(out.data_ptr(), kind, rows, K, H, *kernel_args(p, seed),
+                                  out.device.index, stream_of(out))
+    check_launch(lib, rc, "dropout_dump")
+    return out
+
+
+def dump_attention_keep(B: int, K: int, n_heads: int, p: float, seed: int,
+                        device) -> torch.Tensor:
+    """The attention mask the kernels draw, written by the dump kernel ->
+    (B, H, K, K) fp32 scaled keep (0 < p < 1).  On the CPU the plain
+    version ``attention_keep``; on the card the kernel, or it raises."""
+    if torch.device(device).type == "cpu":
+        return attention_keep(B, K, n_heads, p, seed)
+    out = _dump(0, B, K, n_heads, p, seed, device)
+    dump_attention_keep.launches += 1
+    return out
+
+
+def dump_ffn_keep(N: int, F: int, p: float, seed: int, device) -> torch.Tensor:
+    """The FFN hidden mask the kernels draw, written by the dump kernel ->
+    (N, F) fp32 scaled keep over the flattened rows (0 < p < 1).  On the
+    CPU the plain version ``ffn_keep``; on the card the kernel, or it
+    raises."""
+    if torch.device(device).type == "cpu":
+        return ffn_keep(N, F, p, seed)
+    out = _dump(1, N, F, 1, p, seed, device)
+    dump_ffn_keep.launches += 1
+    return out
+
+
+dump_attention_keep.launches = 0
+dump_ffn_keep.launches = 0
 
 
 def _np_fmix32(x: np.ndarray) -> np.ndarray:

@@ -167,9 +167,11 @@ def _cuda_args(name, tensors):
 
 
 def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
-                      seed: int = 0):
+                      seed: int = 0, blocks=None):
     """The forward alone (no autograd): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor.  ``blocks`` caps the kernel's
+    persistent grid (default: as many blocks as fit on the SMs); the
+    output does not depend on it."""
     _check(x, wqkv, bqkv, bias, n_heads, dropout_p)
     if x.device.type == "cpu":
         return fused_mha_qkv_reference(x, wqkv, bqkv, bias, n_heads, dropout_p, seed)
@@ -181,7 +183,7 @@ def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
     rc = lib.tossctr_fused_mha_qkv_fwd(
         *(t.data_ptr() for t in tensors), out.data_ptr(), B, K, D, n_heads,
         attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
-        DTYPE_CODES[x.dtype], x.device.index, stream_of(x),
+        int(blocks or 0), DTYPE_CODES[x.dtype], x.device.index, stream_of(x),
     )
     check_launch(lib, rc, "fused_mha_qkv")
     fused_mha_qkv.launches += 1
@@ -189,7 +191,7 @@ def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
 
 
 def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 0.0,
-                      seed: int = 0, tiled: bool = False):
+                      seed: int = 0, tiled: bool = False, blocks=None):
     """-> (dx, dwqkv, dbqkv, dbias), the last three fp32 sums over the
     batch: the kernel on a CUDA tensor (per-block fp32 partials reduced in
     a fixed order, so the result repeats bit for bit), the plain version on
@@ -197,7 +199,10 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     the key-tiled one above.  ``tiled`` asks for the key-tiled one at any
     K; the model never passes it.  It stays because the choice of kernel
     at K <= 64 rests on timing both on the same inputs, which no other
-    call can do: ``chip_smoke.py`` does so at the flagship's K each run."""
+    call can do: ``chip_smoke.py`` does so at the flagship's K each run.
+    ``blocks`` caps the persistent grid (default: as many as fit, at most
+    BWD_BLOCKS_PER_SM an SM); dx does not depend on it, the weight
+    gradients' partials regroup."""
     _check(x, wqkv, bqkv, bias, n_heads, dropout_p)
     if do.shape != x.shape or do.dtype != x.dtype or do.device != x.device:
         raise ValueError(f"do must match x: {tuple(do.shape)} {do.dtype} {do.device}")
@@ -212,7 +217,7 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
         raise ValueError(f"the key-tiled fused_mha_qkv_bwd kernel takes a head width "
                          f"D / n_heads divisible by 4; got {D // n_heads}")
     lib = load_library("fused_mha_qkv_bwd")
-    blocks = persistent_blocks(x, per_sm=BWD_BLOCKS_PER_SM)
+    blocks = persistent_blocks(x, per_sm=BWD_BLOCKS_PER_SM, blocks=blocks)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     n_part = D * 3 * D + 3 * D + K * K
@@ -313,9 +318,12 @@ def _check_mha(q, k, v, bias, n_heads, dropout_p):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0,
+                  blocks=None):
     """The forward alone (no autograd): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor.  ``blocks`` caps the kernel's
+    persistent grid (default: as many blocks as fit on the SMs); the
+    output does not depend on it."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
     if q.device.type == "cpu":
         return fused_mha_reference(q, k, v, bias, n_heads, dropout_p, seed)
@@ -327,18 +335,21 @@ def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int
     rc = lib.tossctr_fused_mha_fwd(
         *(t.data_ptr() for t in tensors), out.data_ptr(), B, K, D, n_heads,
         attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
-        DTYPE_CODES[q.dtype], q.device.index, stream_of(q),
+        int(blocks or 0), DTYPE_CODES[q.dtype], q.device.index, stream_of(q),
     )
     check_launch(lib, rc, "fused_mha")
     fused_mha.launches += 1
     return out
 
 
-def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0):
+def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0,
+                  blocks=None):
     """-> (dq, dk, dv, dbias), dbias the fp32 sum over the batch and the
     heads: the key-tiled kernel on a CUDA tensor (per-block fp32 partials
     reduced in a fixed order, so the result repeats bit for bit), the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor.  ``blocks`` caps the persistent grid
+    (default: as many as fit, at most BWD_BLOCKS_PER_SM an SM); dq, dk, dv
+    do not depend on it, dbias's partials regroup."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do must match q: {tuple(do.shape)} {do.dtype} {do.device}")
@@ -350,7 +361,7 @@ def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed:
     if D > 64:
         raise ValueError(f"fused_mha_bwd kernel takes D <= 64; got D={D}")
     lib = load_library("fused_mha_bwd")
-    blocks = persistent_blocks(q, per_sm=BWD_BLOCKS_PER_SM)
+    blocks = persistent_blocks(q, per_sm=BWD_BLOCKS_PER_SM, blocks=blocks)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     partials = torch.empty(blocks, K * K, dtype=torch.float32, device=q.device)
     dbias = torch.empty(K, K, dtype=torch.float32, device=q.device)

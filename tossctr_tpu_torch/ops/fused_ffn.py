@@ -195,11 +195,13 @@ def fused_block_tail_fwd(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2,
 
 
 def fused_block_tail_bwd(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, dy,
-                         dropout_p: float = 0.0, seed: int = 0):
+                         dropout_p: float = 0.0, seed: int = 0, blocks=None):
     """-> (dx, do, dwout, dbout, dwn1, dw1, db1, dw2, db2, dwn2), the last
     eight fp32 sums over the rows: the kernel on a CUDA tensor (per-block
     fp32 partials reduced in a fixed order, so the result repeats bit for
-    bit), the plain version on a CPU tensor."""
+    bit), the plain version on a CPU tensor.  ``blocks``: the persistent
+    grid (default one block an SM); dx and do do not depend on it, the
+    weight gradients' partials regroup."""
     args = (x, o, wout, bout, wn1, w1, b1, w2, b2, wn2)
     _check(x, dropout_p, o=o, wout=wout, bout=bout, wn1=wn1, w1=w1, b1=b1, w2=w2, b2=b2,
            wn2=wn2)
@@ -211,7 +213,7 @@ def fused_block_tail_bwd(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, dy,
     N, D = x.shape
     F = w1.shape[1]
     lib = load_library("fused_block_tail_bwd")
-    blocks = persistent_blocks(x)
+    blocks = persistent_blocks(x, blocks=blocks)
     sizes = [D * D, D, D, D * F, F, F * D, D, D]  # dwout dbout dwn1 dw1 db1 dw2 db2 dwn2
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, do = torch.empty_like(x), torch.empty_like(x)
@@ -328,11 +330,13 @@ def fused_ffn_fwd(x, w1, b1, w2, b2, dropout_p: float = 0.0, seed: int = 0):
     return y
 
 
-def fused_ffn_bwd(x, w1, b1, w2, dy, dropout_p: float = 0.0, seed: int = 0):
+def fused_ffn_bwd(x, w1, b1, w2, dy, dropout_p: float = 0.0, seed: int = 0, blocks=None):
     """-> (dx, dw1, db1, dw2, db2), the last four fp32 sums over the rows:
     the kernel on a CUDA tensor (per-block fp32 partials reduced in a
     fixed order, so the result repeats bit for bit), the plain version on
-    a CPU tensor."""
+    a CPU tensor.  ``blocks``: the persistent grid (default one block an
+    SM); dx does not depend on it, the weight gradients' partials
+    regroup."""
     args = (x, w1, b1, w2)
     _check(x, dropout_p, w1=w1, b1=b1, w2=w2)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
@@ -343,7 +347,7 @@ def fused_ffn_bwd(x, w1, b1, w2, dy, dropout_p: float = 0.0, seed: int = 0):
     N, D = x.shape
     F = w1.shape[1]
     lib = load_library("fused_ffn_bwd")
-    blocks = persistent_blocks(x)
+    blocks = persistent_blocks(x, blocks=blocks)
     sizes = [D * F, F, F * D, D]  # dw1 db1 dw2 db2
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
