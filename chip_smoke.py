@@ -12,7 +12,11 @@
    QNN-alpha head's shapes (also in fp32), each against its plain PyTorch
    version (error and tolerance), its time from CUDA events beside the
    plain version's, a PyTorch yardstick where PyTorch computes the same
-   function, and the least time the card could take.  Beside them:
+   function, and the least time the card could take; for ``fused_ffn``
+   and its backward also their TFLOP/s, each kernel's registers, static
+   shared memory and spills (ptxas's report of the build) and, where the
+   toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in its SASS
+   (a bf16 tensor-core kernel without them fails).  Beside them:
    ``fused_mha_qkv_bwd``'s key-tiled kernel at the flagship's K against
    its row-resident one; the four attention kernels at the larger-K
    configs' shapes (K = 120 at B = 8192, K = 152 at B = 4096); and
@@ -755,7 +759,36 @@ def separate_kernel_rows(cfg, dev, g):
         library_call="backward of the three-call FFN composite (retain_graph; no dropout)",
     )
     del fargs, x, w1, b1, w2, b2, dy, bw, leaves, out
+    for name, flops in (("fused_ffn", 4 * N * D * Fh), ("fused_ffn_bwd", 10 * N * D * Fh)):
+        r = results[name]
+        log(f"[kernel] {name} bf16: {flops / r['ms'] * 1e-9:.4f} TFLOP/s "
+            f"({r['ms']:.4f} ms; library call {r['library_ms']:.4f} ms)")
+        r["build"] = tensor_core_report(name)
     return results
+
+
+def tensor_core_report(name):
+    """Registers, static shared memory and spills of each kernel in the
+    library ``name`` (ptxas's report of its build) and, where the toolkit
+    has ``cuobjdump``, the HMMA / HGMMA instructions in each kernel's SASS.
+    Fails if ``cuobjdump`` finds no tensor-core instruction in the bf16
+    tensor-core kernel (its name holds ``_mma``)."""
+    from tossctr_tpu_torch.ops._build import ptxas_report, sass_counts
+
+    ptxas, sass = ptxas_report(name), sass_counts(name)
+    report = {}
+    for fn, r in sorted(ptxas.items()):
+        ops = (sass or {}).get(fn)
+        report[fn] = dict(r, **(ops or {}))
+        log(f"[kernel] {name} build {fn}: {r['registers']} registers, {r['smem']} bytes static "
+            f"shared memory, spill stores {r['spill_stores']} / loads {r['spill_loads']} bytes; "
+            + ("SASS " + ", ".join(f"{op} {n}" for op, n in ops.items()) if ops is not None
+               else "SASS not read (no cuobjdump)"))
+    if sass is not None:
+        mma = [fn for fn in sass if "_mma" in fn]
+        if not mma or any(sum(sass[fn].values()) == 0 for fn in mma):
+            raise AssertionError(f"{name}: no tensor-core instruction in the bf16 kernels {mma}")
+    return report
 
 
 def fm_kernel_rows(cfg, dev, g):

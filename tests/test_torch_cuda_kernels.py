@@ -13,8 +13,11 @@ attention kernels at K = 12 and 61 (not multiples of 4 or 8) and at K =
 kernels; the forwards' query tiles), ``fused_mha_qkv``'s key-tiled
 backward also at K = 13 and 64 on request,
 ``fused_ffn`` at N = 37 and 130
-rows (not multiples of its 64-row tile) and F = 40 and 100 (not
-multiples of its 64-column hidden chunk); the FM-cross pair runs at the
+rows (not multiples of its row tiles) and F = 40 and 100 (not
+multiples of its 64-column hidden chunk), at D = 32, F = 64, at N =
+132 * 64 * 3 + 37 (several persistent walks with a ragged end) and at F
+= 1024 (the bf16 forward's weights in two panels), its backward also at
+grids of 1 and 7 blocks; the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
 of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
 tables with duplicates, out-of-range ids, uniform and zipf ids and one
@@ -245,6 +248,25 @@ def test_cuda_kernels_match_plain_versions():
             close(name, dtype, dgot[i], want[i], activation=i == 0)
             assert torch.equal(dgot[i], again[i]), f"{name} changed between two calls"
 
+    def ffn_grids(dtype, N, D, F, p):
+        """fused_ffn_bwd at grids of 1, 7 and the default blocks: dx
+        bit-equal across the grids, the weight gradients bit-equal between
+        two calls on one grid and within the fp32 band across grids (their
+        per-block partials regroup)."""
+        (x, w1, b1, w2, _), dy = ffn_args(dtype, N, D, F)
+        runs = {}
+        for blocks in (None, 1, 7):
+            first = fused_ffn_bwd(x, w1, b1, w2, dy, p, SEED, blocks=blocks)
+            again = fused_ffn_bwd(x, w1, b1, w2, dy, p, SEED, blocks=blocks)
+            for i, name in enumerate(("dx", "dw1", "db1", "dw2", "db2")):
+                assert torch.equal(first[i], again[i]), f"{name} changed between two calls"
+            runs[blocks] = first
+        torch.cuda.synchronize()
+        for blocks in (1, 7):
+            assert torch.equal(runs[blocks][0], runs[None][0]), f"dx moved with the grid ({blocks})"
+            for i, name in enumerate(("dw1", "db1", "dw2", "db2"), 1):
+                close(f"{name} at {blocks} blocks", "f32", runs[blocks][i], runs[None][i])
+
     def ffn_autograd(dtype, N, D, F, p):
         """fused_ffn's backward is the kernel, dW in the weights' dtypes."""
         args, dy = ffn_args(dtype, N, D, F)
@@ -317,9 +339,12 @@ def test_cuda_kernels_match_plain_versions():
         with pytest.raises(ValueError):
             sweep_rows_add([table], torch.zeros(3, dtype=torch.long, device=dev),
                            [torch.zeros(3, 6, device=dev)])  # D % 4
-        (x, w1, b1, w2, b2), _ = ffn_args("f32", 8, 68, 40)
-        with pytest.raises(ValueError):
-            fused_ffn(x, w1, b1, w2, b2)  # D > 64
+        for dtype in ("f32", "bf16"):
+            (x, w1, b1, w2, b2), dy = ffn_args(dtype, 8, 68, 40)
+            with pytest.raises(ValueError):
+                fused_ffn(x, w1, b1, w2, b2)  # D > 64
+            with pytest.raises(ValueError):
+                fused_ffn_bwd(x, w1, b1, w2, dy)  # D > 64
         z, U, V, g = fm_args("f32", 4, 8, 68, 2, 4, 8)
         with pytest.raises(ValueError):
             fm_cross_pallas(z, U, V)  # D > 64
@@ -481,8 +506,15 @@ def test_cuda_kernels_match_plain_versions():
         for p in (0.0, P_DROP):
             for B, K, D, H in ((64, 64, 64, 8), (9, 61, 64, 8), (5, 12, 16, 4)):
                 checks.run(f"mha {dtype} p={p} B={B} K={K} D={D} H={H}", mha, dtype, B, K, D, H, p)
-            for N, D, F in ((1000, 64, 384), (37, 16, 40), (130, 64, 100)):
+            # the flagship's widths; ragged N and F; cfgs/synth_small.yaml's
+            # width; several persistent walks with a ragged end (132 SMs x 64
+            # rows x 3 + 37); F too wide for the forward's shared memory (its
+            # weights in two panels)
+            for N, D, F in ((1000, 64, 384), (37, 16, 40), (130, 64, 100), (200, 32, 64),
+                            (132 * 64 * 3 + 37, 64, 384), (300, 64, 1024)):
                 checks.run(f"ffn {dtype} p={p} N={N} D={D} F={F}", ffn, dtype, N, D, F, p)
+        for N, D, F in ((132 * 64 * 3 + 37, 64, 384), (200, 32, 64), (37, 16, 40)):
+            checks.run(f"ffn grids {dtype} N={N} D={D} F={F}", ffn_grids, dtype, N, D, F, P_DROP)
         checks.run(f"mha autograd {dtype}", mha_autograd, dtype, 7, 12, 64, 8, P_DROP)
         checks.run(f"ffn autograd {dtype}", ffn_autograd, dtype, 130, 64, 384, P_DROP)
         # (B, F, D, H, R, P): the flagship's QNN at a ragged batch, a ragged

@@ -1,0 +1,330 @@
+// Tensor-core stages of the bf16 FFN kernels (fused_ffn.cu,
+// fused_ffn_bwd.cu): one 64-column hidden chunk of the forward for a
+// warp's 16 rows, the backward's hidden recompute with dh and dx for a
+// warp's 16 rows, and the backward's weight-gradient products, which
+// contract over the rows of a shared tile.
+//
+// Every product is mma.sync.m16n8k16 with bf16 operands and fp32
+// accumulators, fed by ldmatrix from shared memory.  bf16 x bf16 products
+// are exact in fp32, so only the summation order differs from the fp32
+// CUDA-core kernels (ffn_core.cuh); the rounding points are the Pallas
+// kernels' (tossctr_tpu/ops/pallas_ffn.py:110-199).  A hidden chunk's
+// accumulators never leave registers in the forward: bias, GELU, dropout
+// and the bf16 rounding are applied in place and the C fragments are
+// packed straight into the A fragments of the next product (the m16n8k16
+// C layout is the A layout of the columns it covers).
+//
+// Shared tiles are bf16, row-major, with rows 16 bytes longer than their
+// data (row_stride), so the eight 16-byte rows that one ldmatrix phase
+// reads fall in eight different bank groups.  A transposed operand is
+// read with ldmatrix.trans from the row-major tile; nothing is stored
+// transposed.  Helpers are called by every lane of a warp.
+#pragma once
+
+#include "common.cuh"
+
+namespace tossctr {
+namespace ffn_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kChunk = 64;  // hidden columns a chunk
+constexpr int kHalf = 32;   // hidden columns held in registers at a time
+constexpr int kWarpRows = 16;
+
+// shared row stride (elements) of a bf16 tile ``cols`` wide
+__host__ __device__ constexpr int row_stride(int cols) { return cols + 8; }
+
+__host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- PTX ----
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bytes global -> shared, asynchronous; zeros where !ok
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two fp32 -> one register of two bf16 (lo in the low half), rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// ---- ldmatrix.x4 addressing of the 16x16 tile at (row0, col0) ----
+// p1: the four 8x8 matrices are (rows 0-7, cols 0-7), (8-15, 0-7),
+// (0-7, 8-15), (8-15, 8-15).  ldsm_x4 of a [m][k] tile -> an A fragment;
+// ldsm_x4_t of a [k][n] tile -> B fragments of n-tiles 0 ({r0, r1}) and 1
+// ({r2, r3}).
+__device__ __forceinline__ const bf16* tile_p1(const bf16* s, int ld, int row0, int col0,
+                                               int lane) {
+  return s + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
+}
+
+// p2: (rows 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15).
+// ldsm_x4_t of a [k][m] tile -> an A fragment (the tile's transpose);
+// ldsm_x4 of a [n][k] tile -> B fragments of n-tiles 0 and 1.
+__device__ __forceinline__ const bf16* tile_p2(const bf16* s, int ld, int row0, int col0,
+                                               int lane) {
+  return s + (row0 + (lane >> 4) * 8 + (lane & 7)) * ld + col0 + ((lane >> 3) & 1) * 8;
+}
+
+// cp.async of a (rows, cols) bf16 region from global (row stride ld) into
+// shared (row stride lds) in 8-byte pieces, by threads i0, i0 + step, ...;
+// zeros at rows >= rows_ok or columns >= cols_ok.  cols, cols_ok and ld
+// are multiples of 4, so a piece is all in or all out.
+__device__ __forceinline__ void copy_async(bf16* dst, int lds, const bf16* src, int ld, int rows,
+                                           int cols, int rows_ok, int cols_ok, int i0,
+                                           int step) {
+  const int per_row = cols >> 2;
+  for (int i = i0; i < rows * per_row; i += step) {
+    const int r = i / per_row, c = (i - r * per_row) * 4;
+    const bool ok = r < rows_ok && c < cols_ok;
+    cp_async8(dst + r * lds + c, ok ? src + (size_t)r * ld + c : src, ok);
+  }
+}
+
+// gelu_tanh(h) and gelu_tanh_grad(h) of common.cuh with one tanhf: the
+// same operations in the same order, so both are bit-equal to those
+__device__ __forceinline__ float gelu_and_grad(float h, float* grad) {
+  const float h3 = __fmul_rn(__fmul_rn(__fmul_rn(kGeluC, h), h), h);
+  const float t = tanhf(__fmul_rn(kSqrt2OverPi, __fadd_rn(h, h3)));
+  const float du = __fmul_rn(kSqrt2OverPi, __fadd_rn(1.0f, __fmul_rn(__fmul_rn(kGelu3C, h), h)));
+  const float a = __fmul_rn(0.5f, __fadd_rn(1.0f, t));
+  const float b = __fmul_rn(__fmul_rn(__fmul_rn(0.5f, h), __fsub_rn(1.0f, __fmul_rn(t, t))), du);
+  *grad = __fadd_rn(a, b);
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, t));
+}
+
+// ---- the forward: one chunk for a warp's 16 rows ----
+//   acc += round_bf16(gelu_tanh(x @ W1c + b1c) * keep) @ W2c
+// xa: the A fragments of the rows' x (DP columns, zero past D); w1c: the
+// chunk's columns of W1 in shared memory ([DP][ld1], W1's own layout);
+// w2c: the chunk's rows of W2 ([64][ld2]); b1c: the chunk's 64 biases
+// (fp32, zero past F); f0: the chunk's first hidden column; row0: the
+// warp's first row, both absolute (the dropout hash's coordinates).
+// Columns past F have zero weights and bias, so h = 0 and g = 0 there.
+template <int DP>
+__device__ __forceinline__ void fwd_chunk(const uint32_t (&xa)[DP / 16][4], const bf16* w1c,
+                                          int ld1, const bf16* w2c, int ld2, const float* b1c,
+                                          int f0, int row0, const Dropout& drop,
+                                          float (&acc)[DP / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int c0 = 0; c0 < kChunk; c0 += kHalf) {
+    float h[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, tile_p1(w1c, ld1, kk * 16, c0 + np * 16, lane));
+        mma(h[2 * np], xa[kk], b[0], b[1]);
+        mma(h[2 * np + 1], xa[kk], b[2], b[3]);
+      }
+    // h (C fragments of four n8 tiles) -> g as the A fragments of two k16 steps
+    uint32_t ga[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + j * 8 + 2 * t;
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float gv = gelu_tanh(__fadd_rn(h[j][i], b1c[c + (i & 1)]));
+        if (drop.on()) gv = __fmul_rn(gv, drop.ffn(row0 + g + (i >> 1) * 8, f0 + c + (i & 1)));
+        v[i] = gv;
+      }
+      ga[j >> 1][(j & 1) * 2] = pack_bf16(v[0], v[1]);
+      ga[j >> 1][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, tile_p1(w2c, ld2, c0 + s * 16, np * 16, lane));
+        mma(acc[2 * np], ga[s], b[0], b[1]);
+        mma(acc[2 * np + 1], ga[s], b[2], b[3]);
+      }
+  }
+}
+
+// ---- the backward: one chunk's hidden layer for a warp's 16 rows ----
+//   h = x @ W1c + b1c, g = round_bf16(gelu_tanh(h) * keep)
+//   dh = (dy @ W2c^T) * keep * gelu'(h) (fp32); db1p += dh
+//   dx += round_bf16(dh) @ W1c^T
+// xs, dys: the warp's 16 rows of x and dy ([16][lda]); w1c, w2c, b1c, f0,
+// row0 as in fwd_chunk.  g and round_bf16(dh) go to gs and dhs (the warp's
+// 16 rows, [16][ldg]) for the weight-gradient products.  db1p[k][e]: this
+// lane's sum of dh over its two rows at chunk column 8k + 2(lane % 4) + e.
+template <int DP>
+__device__ __forceinline__ void bwd_hidden(const bf16* xs, const bf16* dys, int lda,
+                                           const bf16* w1c, int ld1, const bf16* w2c, int ld2,
+                                           const float* b1c, int f0, int row0,
+                                           const Dropout& drop, bf16* gs, bf16* dhs, int ldg,
+                                           float (&dx)[DP / 8][4], float (&db1p)[8][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t xa[DP / 16][4], da[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    ldsm_x4(xa[kk], tile_p1(xs, lda, 0, kk * 16, lane));
+    ldsm_x4(da[kk], tile_p1(dys, lda, 0, kk * 16, lane));
+  }
+#pragma unroll
+  for (int c0 = 0; c0 < kChunk; c0 += kHalf) {
+    float h[4][4] = {}, dg[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(b, tile_p1(w1c, ld1, kk * 16, c0 + np * 16, lane));  // W1c: [d][f]
+        mma(h[2 * np], xa[kk], b[0], b[1]);
+        mma(h[2 * np + 1], xa[kk], b[2], b[3]);
+        ldsm_x4(b, tile_p2(w2c, ld2, c0 + np * 16, kk * 16, lane));  // W2c^T: W2c is [f][d]
+        mma(dg[2 * np], da[kk], b[0], b[1]);
+        mma(dg[2 * np + 1], da[kk], b[2], b[3]);
+      }
+    uint32_t ha[2][4];  // round_bf16(dh) as the A fragments of two k16 steps
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + j * 8 + 2 * t;
+      float gv[4], dh[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float gp;
+        float gg = gelu_and_grad(__fadd_rn(h[j][i], b1c[c + (i & 1)]), &gp);
+        float d = dg[j][i];
+        if (drop.on()) {
+          const float keep = drop.ffn(row0 + g + (i >> 1) * 8, f0 + c + (i & 1));
+          gg = __fmul_rn(gg, keep);
+          d = __fmul_rn(d, keep);
+        }
+        gv[i] = gg;
+        dh[i] = __fmul_rn(d, gp);
+        db1p[c0 / 8 + j][i & 1] += dh[i];
+      }
+      const uint32_t d01 = pack_bf16(dh[0], dh[1]), d23 = pack_bf16(dh[2], dh[3]);
+      *reinterpret_cast<uint32_t*>(gs + g * ldg + c) = pack_bf16(gv[0], gv[1]);
+      *reinterpret_cast<uint32_t*>(gs + (g + 8) * ldg + c) = pack_bf16(gv[2], gv[3]);
+      *reinterpret_cast<uint32_t*>(dhs + g * ldg + c) = d01;
+      *reinterpret_cast<uint32_t*>(dhs + (g + 8) * ldg + c) = d23;
+      ha[j >> 1][(j & 1) * 2] = d01;
+      ha[j >> 1][(j & 1) * 2 + 1] = d23;
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, tile_p2(w1c, ld1, np * 16, c0 + s * 16, lane));  // W1c^T: W1c is [d][f]
+        mma(dx[2 * np], ha[s], b[0], b[1]);
+        mma(dx[2 * np + 1], ha[s], b[2], b[3]);
+      }
+  }
+}
+
+// ---- the backward's weight gradients over ``rows`` rows of shared tiles ----
+// dW2c rows [16m, 16m + 16) (of the chunk's 64) += g^T dy: acc[j] is the
+// n8 tile of columns 8j.. (j < DP/8).  gs [rows][ldg], dys [rows][lda].
+template <int DP>
+__device__ __forceinline__ void wgrad_dw2(const bf16* gs, int ldg, const bf16* dys, int lda,
+                                          int rows, int m, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int k0 = 0; k0 < rows; k0 += 16) {
+    uint32_t a[4];
+    ldsm_x4_t(a, tile_p2(gs, ldg, k0, m * 16, lane));  // g^T: gs is [r][f]
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, tile_p1(dys, lda, k0, np * 16, lane));  // dy: [r][d]
+      mma(acc[2 * np], a, b[0], b[1]);
+      mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// dW1c rows [16m, 16m + 16) (of DP) += x^T round_bf16(dh): acc[j] is the
+// n8 tile of chunk columns 8j.. (j < 8).  xs [rows][lda], dhs [rows][ldg].
+__device__ __forceinline__ void wgrad_dw1(const bf16* xs, int lda, const bf16* dhs, int ldg,
+                                          int rows, int m, float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int k0 = 0; k0 < rows; k0 += 16) {
+    uint32_t a[4];
+    ldsm_x4_t(a, tile_p2(xs, lda, k0, m * 16, lane));  // x^T: xs is [r][d]
+#pragma unroll
+    for (int np = 0; np < kChunk / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, tile_p1(dhs, ldg, k0, np * 16, lane));  // round_bf16(dh): [r][f]
+      mma(acc[2 * np], a, b[0], b[1]);
+      mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Add a (16 x 8 n-tiles) fp32 accumulator block into a row-major fp32
+// matrix p (row stride ld), rows r0 + lane's two rows, columns c0 + 8j +
+// 2(lane % 4), only where row < nr and column < nc.  One float2 atomic a
+// lane and pair: each entry has one owner thread, so its adds happen in
+// that thread's program order and the sum repeats bit for bit.
+template <int NT>
+__device__ __forceinline__ void add_block(float* p, int ld, int r0, int c0, int nr, int nc,
+                                          const float (&acc)[8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int c = c0 + j * 8 + 2 * t;
+    if (c >= nc) continue;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = r0 + g + hr * 8;
+      if (r < nr)
+        atomicAdd(reinterpret_cast<float2*>(p + (size_t)r * ld + c),
+                  make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]));
+    }
+  }
+}
+
+}  // namespace ffn_mma
+}  // namespace tossctr

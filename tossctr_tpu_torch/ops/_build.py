@@ -14,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -159,3 +160,70 @@ def check_launch(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.tossctr_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_TENSOR_CORE_OPS = ("HMMA", "HGMMA")  # mma.sync and wgmma in SASS
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """ptxas ``-v`` output -> {kernel (mangled): {registers, smem (static
+    bytes; the kernels' dynamic shared memory is not in it), spill_stores,
+    spill_loads}}."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict(registers=0, smem=0, spill_stores=0, spill_loads=0)
+            continue
+        if fn is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = _PTXAS_USED.search(line)
+        if m:
+            out[fn].update(registers=int(m.group(1)), smem=int(m.group(2) or 0))
+    return out
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """``parse_ptxas`` of the report the last build of ``name`` wrote ({}
+    where there is none)."""
+    path = BUILD_DIR / f"{name}.ptxas.txt"
+    return parse_ptxas(path.read_text()) if path.exists() else {}
+
+
+def parse_sass_counts(text: str) -> Dict[str, Dict[str, int]]:
+    """``cuobjdump -sass`` output -> {kernel (mangled): {HMMA: n, HGMMA: n}},
+    its tensor-core instructions."""
+    pats = {op: re.compile(rf"\b{op}\b") for op in _TENSOR_CORE_OPS}
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.match(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(_TENSOR_CORE_OPS, 0)
+        elif fn is not None:
+            for op, pat in pats.items():
+                out[fn][op] += bool(pat.search(line))
+    return out
+
+
+def sass_counts(name: str) -> Optional[Dict[str, Dict[str, int]]]:
+    """``parse_sass_counts`` of the built library ``name`` (None where the
+    toolkit has no ``cuobjdump``)."""
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+        if not os.path.exists(tool):
+            return None
+    path = build([name])[name]
+    res = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True)
+    return parse_sass_counts(res.stdout)

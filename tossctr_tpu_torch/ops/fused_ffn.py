@@ -11,10 +11,11 @@ Port of ``tossctr_tpu/ops/pallas_ffn.py``:
   The RMSNorm encoder layer with both kernel flags runs it.
 * ``fused_ffn``: drop(gelu_tanh(x W1 + b1)) W2 + b2, the forward
   (``_fwd_call``) and its backward (``_bwd_call``); kernels
-  ``csrc/fused_ffn.cu`` and ``csrc/fused_ffn_bwd.cu``, plain versions
-  ``fused_ffn_reference`` / ``fused_ffn_bwd_reference``.  The encoder
-  layer's separate-kernel branch (LayerNorm, or ``fuse_block`` off) runs
-  it.
+  ``csrc/fused_ffn.cu`` and ``csrc/fused_ffn_bwd.cu`` (bf16 on the tensor
+  cores, ``csrc/ffn_mma.cuh``; fp32 exact on the CUDA cores), plain
+  versions ``fused_ffn_reference`` / ``fused_ffn_bwd_reference``.  The
+  encoder layer's separate-kernel branch (LayerNorm, or ``fuse_block``
+  off) runs it.
 
 Both drop hidden units with the counter-hash mask of the absolute row
 (``ops/dropout.py`` ``ffn_keep``).  The plain versions keep the Pallas
