@@ -12,14 +12,17 @@
    QNN-alpha head's shapes (also in fp32), each against its plain PyTorch
    version (error and tolerance), its time from CUDA events beside the
    plain version's, a PyTorch yardstick where PyTorch computes the same
-   function, and the least time the card could take; for ``fused_ffn``
-   and its backward also their TFLOP/s, each kernel's registers, static
-   shared memory and spills (ptxas's report of the build) and, where the
-   toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in its SASS
-   (a bf16 tensor-core kernel without them fails).  Beside them:
-   ``fused_mha_qkv_bwd``'s key-tiled kernel at the flagship's K against
-   its row-resident one; the four attention kernels at the larger-K
-   configs' shapes (K = 120 at B = 8192, K = 152 at B = 4096); and
+   function, and the least time the card could take; for the kernels
+   with a bf16 tensor-core form (``fused_ffn`` and its backward, the two
+   attention backwards) also their TFLOP/s and share of the bound, the
+   attention backwards' times with dropout off (their yardsticks have
+   none), each kernel's registers,
+   static shared memory and spills (ptxas's report of the build) and,
+   where the toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in
+   its SASS (a bf16 tensor-core kernel without them fails).  Beside
+   them: the four attention kernels at the larger-K configs' shapes (K =
+   120 at B = 8192, K = 152 at B = 4096), with their PyTorch yardsticks
+   at those shapes; and
    ``sweep_rows_add`` at the flagship's table update (the (10M, 128) bf16
    table, 8192 x 64 ids, fp32 deltas) with uniform, zipf:1.0 and hot-id
    ids, against its plain version and ``Tensor.index_add_``.
@@ -189,6 +192,30 @@ def bound_ms(n_bytes: float, n_flops: float, peak_ops: float = PEAK_BF16_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def qkv_bwd_flops(B, K, D):
+    """fused_mha_qkv_bwd's operations: the projection recomputed, dx and
+    dWqkv (three (K, D, 3D) products a row) and the five (K, K, dh)
+    products of each head's backward."""
+    return 2 * B * K * D * 3 * D * 3 + mha_bwd_flops(B, K, D)
+
+
+def mha_bwd_flops(B, K, D):
+    """fused_mha_bwd's operations: five (K, K, dh) products a row and head
+    (the scores, dp, dq, dk, dv)."""
+    return 10 * B * K * K * D
+
+
+def tensor_core_rows(results, flops):
+    """Log each named row's TFLOP/s and share of its bound, and attach the
+    build report of its library (``tensor_core_report``)."""
+    for name, n in flops.items():
+        r = results[name]
+        log(f"[kernel] {name} bf16: {n / r['ms'] * 1e-9:.4f} TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.2%} of the bound ({r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call {r['library_ms']:.4f} ms)")
+        r["build"] = tensor_core_report(name)
+
+
 def check_close(name, got, want, band):
     """max |got - want| over one output, held to ``band``."""
     err = float((got.float() - want.float()).abs().max())
@@ -299,16 +326,15 @@ def kernel_phase(cfg, dev):
     out = sdpa_yardstick(xg, wg, bg)
     grad_bytes = 4 * (D * 3 * D + 3 * D + K * K)
     b_ms, b_by = bound_ms(nbytes(x, wqkv, bqkv, bias, do) + nbytes(x) + grad_bytes,
-                          2 * B * K * D * 3 * D * 3 + 10 * B * K * K * D)
-    tiled_err = tiled_backward_check("fused_mha_qkv_bwd", fused_mha_qkv_bwd, bw, want)
+                          qkv_bwd_flops(B, K, D))
     del want
     results["fused_mha_qkv_bwd"] = dict(
         name="fused_mha_qkv_bwd", route="cuda",
         source="tossctr_tpu_torch/csrc/fused_mha_qkv_bwd.cu",
         replaces="tossctr_tpu/ops/pallas_attention.py:1101",
-        max_abs_err=max(errs + [tiled_err]), dropout_p=P_DROP,
-        ms_tiled=cuda_time_ms(lambda: fused_mha_qkv_bwd(*bw, tiled=True)),
+        max_abs_err=max(errs), dropout_p=P_DROP,
         ms=cuda_time_ms(lambda: fused_mha_qkv_bwd(*bw)),
+        ms_no_dropout=cuda_time_ms(lambda: fused_mha_qkv_bwd(*bw[:5], H)),
         plain_ms=cuda_time_ms(lambda: fused_mha_qkv_bwd_reference(*bw)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_time_ms(
@@ -317,6 +343,7 @@ def kernel_phase(cfg, dev):
                      "F.scaled_dot_product_attention (retain_graph; no dropout, no dbias)",
     )
     del x, do, out, xg, wg, bg, bw
+    tensor_core_rows(results, {"fused_mha_qkv_bwd": qkv_bwd_flops(B, K, D)})
 
     # ---- fused_block_tail: x, o (B*K, D) ----
     targs = (rnd(N, D), rnd(N, D), rnd(D, D, std=D ** -0.5), rnd(D, std=0.1, dtype=f32),
@@ -379,13 +406,13 @@ def kernel_phase(cfg, dev):
     large_k_rows(cfg, dev, g, results)
     results["sweep_rows_add"] = sweep_kernel_row(cfg, dev)
     for r in results.values():
-        extra = (f", dropout off {r['ms_no_dropout']:.4f} ms (plain {r['plain_ms_no_dropout']:.4f})"
-                 if "ms_no_dropout" in r else "")
+        extra = ""
+        if "ms_no_dropout" in r:
+            extra = f", dropout off {r['ms_no_dropout']:.4f} ms"
+            if "plain_ms_no_dropout" in r:
+                extra += f" (plain {r['plain_ms_no_dropout']:.4f})"
         if "multihead_ms" in r:
             extra = f", the plain einsum path (fm_cross_multihead) {r['multihead_ms']:.4f} ms"
-        if "ms_tiled" in r:
-            extra += (f", the key-tiled kernel at this K {r['ms_tiled']:.4f} ms "
-                      f"({r['ms_tiled'] / r['ms'] - 1:+.1%})")
         log(f"[kernel] {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"yardstick {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)}"
@@ -394,24 +421,9 @@ def kernel_phase(cfg, dev):
             log(f"[kernel] {r['name']} K={row['K']} B={row['B']}: {row['ms']:.4f} ms"
                 + (f" (dropout off {row['ms_no_dropout']:.4f})" if "ms_no_dropout" in row else "")
                 + f", plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}), max_abs_err {row['max_abs_err']:.6g}")
+                f"({row['bound_by']}), yardstick {row['library_ms']:.4f} ms, "
+                f"max_abs_err {row['max_abs_err']:.6g}")
     return results
-
-
-def tiled_backward_check(name, fn, bw, want):
-    """The key-tiled backward kernel at the flagship's K (``tiled=True``)
-    against the plain version, in the bands of the row-resident one: ->
-    the largest error."""
-    import torch
-
-    got = fn(*bw, tiled=True)
-    torch.cuda.synchronize()
-    errs = [check_close(f"{name} tiled {i}", a, b,
-                        bf16_tolerance(b) if i == 0 else WGRAD_BAND * float(b.abs().max()))
-            for i, (a, b) in enumerate(zip(got, want))]
-    log(f"[kernel] {name} key-tiled kernel at K = {bw[0].shape[1]}: max_abs_err "
-        + ", ".join(f"{e:.6g}" for e in errs) + " (the row-resident kernel's bands)")
-    return max(errs)
 
 
 LARGE_K = ((120, 8192), (152, 4096))  # (K, B): v3_k120_s1_tpu and v3_k148_s1_tpu
@@ -421,10 +433,14 @@ def large_k_rows(cfg, dev, g, results):
     """The four attention kernels at the larger-K configs' shapes (K =
     120 at B = 8192, K = 152 at B = 4096; D = 64, 8 heads, bf16, the last
     4 key columns masked): each against its plain version with dropout
-    off and on, in the flagship rows' bands,
-    timed beside the plain version and the bound.  Appends a ``large_k``
-    list to each kernel's row."""
+    off and on, in the flagship rows' bands, timed beside the plain
+    version, the bound and the flagship row's PyTorch yardstick at this
+    shape (``F.scaled_dot_product_attention`` with the bias as
+    ``attn_mask``, after the ``torch.matmul`` projection for the qkv
+    kernels; the backwards' by autograd, no dropout, no dbias).  Appends a
+    ``large_k`` list to each kernel's row."""
     import torch
+    import torch.nn.functional as F
 
     from tossctr_tpu_torch.ops import (
         fused_mha,
@@ -460,6 +476,28 @@ def large_k_rows(cfg, dev, g, results):
         x, do = rnd(B, K, D), rnd(B, K, D)
         wqkv, bqkv = rnd(D, 3 * D, std=D ** -0.5), rnd(3 * D, std=0.1, dtype=f32)
         q, k, v = rnd(B, K, D), rnd(B, K, D), rnd(B, K, D)
+
+        def heads(t, B=B, K=K):
+            return t.view(B, K, H, D // H).transpose(1, 2)
+
+        def sdpa(q, k, v, B=B, K=K, bias=bias):
+            o = F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=bias)
+            return o.transpose(1, 2).reshape(B, K, D)
+
+        def sdpa_qkv(x, w, b):
+            return sdpa(*(torch.matmul(x, w) + b.to(bf)).split(D, -1))
+
+        leaves = [t.detach().requires_grad_() for t in (x, wqkv, bqkv, q, k, v)]
+        outs = (sdpa_qkv(*leaves[:3]), sdpa(*leaves[3:]))
+        # each kernel's PyTorch yardstick at this shape, as at the flagship's
+        library = {
+            "fused_mha_qkv": lambda: sdpa_qkv(x, wqkv, bqkv),
+            "fused_mha_qkv_bwd": lambda: torch.autograd.grad(outs[0], leaves[:3], do,
+                                                             retain_graph=True),
+            "fused_mha": lambda: sdpa(q, k, v),
+            "fused_mha_bwd": lambda: torch.autograd.grad(outs[1], leaves[3:], do,
+                                                         retain_graph=True),
+        }
         cases = (
             ("fused_mha_qkv", fused_mha_qkv, fused_mha_qkv_reference, (x, wqkv, bqkv, bias, H),
              (0,), nbytes(x, wqkv, bqkv, bias) + nbytes(x), 2 * B * K * D * (3 * D + 2 * K)),
@@ -485,12 +523,13 @@ def large_k_rows(cfg, dev, g, results):
             row = dict(K=K, B=B, max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
                        ms=cuda_time_ms(lambda: fn(*args, P_DROP, DROP_SEED), iters=10),
                        plain_ms=cuda_time_ms(lambda: plain(*args, P_DROP, DROP_SEED), iters=3,
-                                             warmup=1))
+                                             warmup=1),
+                       library_ms=cuda_time_ms(library[name], iters=10))
             if fwd:
                 row["ms_no_dropout"] = cuda_time_ms(lambda: fn(*args), iters=10)
             results[name].setdefault("large_k", []).append(row)
             torch.cuda.empty_cache()
-        del bias, x, do, wqkv, bqkv, q, k, v
+        del bias, x, do, wqkv, bqkv, q, k, v, leaves, outs, library
         torch.cuda.empty_cache()
 
 
@@ -679,12 +718,13 @@ def separate_kernel_rows(cfg, dev, g):
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
     out = sdpa(qg, kg, vg)
     b_ms, b_by = bound_ms(nbytes(q, k, v, bias, do) + 3 * nbytes(q) + 4 * K * K,
-                          10 * B * K * K * D)
+                          mha_bwd_flops(B, K, D))
     results["fused_mha_bwd"] = dict(
         name="fused_mha_bwd", route="cuda", source="tossctr_tpu_torch/csrc/fused_mha_bwd.cu",
         replaces="tossctr_tpu/ops/pallas_attention.py:985",
         max_abs_err=max(errs.values()), dropout_p=P_DROP,
         ms=cuda_time_ms(lambda: fused_mha_bwd(*bw)),
+        ms_no_dropout=cuda_time_ms(lambda: fused_mha_bwd(*bw[:5], H)),
         plain_ms=cuda_time_ms(lambda: fused_mha_bwd_reference(*bw)),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_time_ms(
@@ -759,11 +799,8 @@ def separate_kernel_rows(cfg, dev, g):
         library_call="backward of the three-call FFN composite (retain_graph; no dropout)",
     )
     del fargs, x, w1, b1, w2, b2, dy, bw, leaves, out
-    for name, flops in (("fused_ffn", 4 * N * D * Fh), ("fused_ffn_bwd", 10 * N * D * Fh)):
-        r = results[name]
-        log(f"[kernel] {name} bf16: {flops / r['ms'] * 1e-9:.4f} TFLOP/s "
-            f"({r['ms']:.4f} ms; library call {r['library_ms']:.4f} ms)")
-        r["build"] = tensor_core_report(name)
+    tensor_core_rows(results, {"fused_mha_bwd": mha_bwd_flops(B, K, D),
+                               "fused_ffn": 4 * N * D * Fh, "fused_ffn_bwd": 10 * N * D * Fh})
     return results
 
 

@@ -10,8 +10,13 @@ flagship's rate; the counter-hash mask is the same on the card and in
 the plain version), at flagship-like and ragged shapes: the four
 attention kernels at K = 12 and 61 (not multiples of 4 or 8) and at K =
 80, 120 and 152 and at a ragged K = 77 (the backwards' key-tiled
-kernels; the forwards' query tiles), ``fused_mha_qkv``'s key-tiled
-backward also at K = 13 and 64 on request,
+kernels; the forwards' query tiles), ``fused_mha_qkv``'s fp32
+key-tiled backward also at K = 13 and 64 on request, the two bf16
+backwards' tensor-core kernels (K <= 128) at every head width they take
+(4, 8, 12, 16), at K = 12, 17, 33, 60, 64, 65, 97, 100, 121 and 128, at
+grids of 1 and 7 blocks (and the CUDA-core ones at K = 152), through
+autograd,
+and their refusals of the head widths they do not take,
 ``fused_ffn`` at N = 37 and 130
 rows (not multiples of its row tiles) and F = 40 and 100 (not
 multiples of its 64-column hidden chunk), at D = 32, F = 64, at N =
@@ -224,6 +229,51 @@ def test_cuda_kernels_match_plain_versions():
         for i, (name, t) in enumerate(zip(("dq", "dk", "dv", "dbias"), leaves)):
             assert t.grad.dtype == t.dtype, (name, t.grad.dtype)
             close(name, dtype, t.grad, want[i].to(t.dtype), activation=i < 3)
+
+    def attention_bwd_grids(B, K, D, H, p):
+        """Both bf16 backwards at grids of 1, 7 and the default blocks: the
+        activation gradients bit-equal across the grids, every output
+        bit-equal between two calls on one grid, the weight gradients within
+        the fp32 band across grids (their per-block partials regroup), and
+        the default grid within the bf16 bands of the plain versions."""
+        (x, w, b, bias, _), do = attn_args("bf16", B, K, D, H)
+        (q, k, v, mbias, _), mdo = mha_args("bf16", B, K, D, H)
+        for fn, args, plain, n_act in (
+                (fused_mha_qkv_bwd, (x, w, b, bias, do, H, p, SEED),
+                 fused_mha_qkv_bwd_reference, 1),
+                (fused_mha_bwd, (q, k, v, mbias, mdo, H, p, SEED), fused_mha_bwd_reference, 3)):
+            runs = {}
+            for blocks in (None, 1, 7):
+                first = fn(*args, blocks=blocks)
+                again = fn(*args, blocks=blocks)
+                for i, (u, w_) in enumerate(zip(first, again)):
+                    assert torch.equal(u, w_), f"output {i} changed between two calls"
+                runs[blocks] = first
+            torch.cuda.synchronize()
+            for blocks in (1, 7):
+                for i, (u, w_) in enumerate(zip(runs[None], runs[blocks])):
+                    if i < n_act:
+                        assert torch.equal(u, w_), f"activation {i} moved with the grid ({blocks})"
+                    else:
+                        close(f"weight gradient {i} at {blocks} blocks", "f32", w_, u)
+            for i, (u, ref) in enumerate(zip(runs[None], plain(*args))):
+                close(f"output {i}", "bf16", u, ref, activation=i < n_act)
+
+    def mma_refusals():
+        """The bf16 tensor-core backwards refuse the head widths they do not
+        take at K <= 64, before any launch."""
+        for K, D, H in ((12, 64, 2), (12, 24, 4), (12, 64, 64), (100, 64, 2)):  # dh 32, 6, 1, 32
+            (x, w, b, bias, _), do = attn_args("bf16", 3, K, D, H)
+            (q, k, v, mbias, _), mdo = mha_args("bf16", 3, K, D, H)
+            before = (fused_mha_qkv_bwd.launches, fused_mha_bwd.launches)
+            with pytest.raises(ValueError):
+                fused_mha_qkv_bwd(x, w, b, bias, do, H)
+            with pytest.raises(ValueError):
+                fused_mha_bwd(q, k, v, mbias, mdo, H)
+            assert (fused_mha_qkv_bwd.launches, fused_mha_bwd.launches) == before
+        (x, w, b, bias, _), do = attn_args("bf16", 3, 12, 64, 16)  # dh 4: dWqkv too wide
+        with pytest.raises(ValueError):
+            fused_mha_qkv_bwd(x, w, b, bias, do, 16)
 
     def ffn_args(dtype, N, D, F):
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
@@ -516,11 +566,30 @@ def test_cuda_kernels_match_plain_versions():
         for N, D, F in ((132 * 64 * 3 + 37, 64, 384), (200, 32, 64), (37, 16, 40)):
             checks.run(f"ffn grids {dtype} N={N} D={D} F={F}", ffn_grids, dtype, N, D, F, P_DROP)
         checks.run(f"mha autograd {dtype}", mha_autograd, dtype, 7, 12, 64, 8, P_DROP)
+        checks.run(f"mha autograd {dtype} K=60", mha_autograd, dtype, 7, 60, 64, 8, P_DROP)
+        checks.run(f"attention autograd {dtype} K=12", attention_autograd, dtype, 7, 12, 64, 8,
+                   P_DROP)
         checks.run(f"ffn autograd {dtype}", ffn_autograd, dtype, 130, 64, 384, P_DROP)
         # (B, F, D, H, R, P): the flagship's QNN at a ragged batch, a ragged
         # shape of every dimension, a single row
         for shape in ((67, 200, 64, 6, 16, 192), (5, 13, 10, 3, 5, 7), (1, 8, 16, 2, 4, 8)):
             checks.run(f"fm cross {dtype} {shape}", fm_cross, dtype, *shape)
         checks.run(f"fm cross autograd {dtype}", fm_cross_autograd, dtype, 9, 16, 16, 2, 4, 8)
+    # the bf16 backwards' tensor-core kernels (K <= 128: queries and keys
+    # padded to 64 or 128) at every head width they take (dh 4, 8, 12, 16:
+    # 8-byte pieces, heads padded to 8 and 16 columns), a small odd shape,
+    # the flagship's K = 60 and 64, the first K of the wider form, the K =
+    # 120 config's, its end, and the CUDA-core ones above, across grids
+    for p in (0.0, P_DROP):
+        for B, K, D, H in ((7, 12, 64, 8), (9, 60, 64, 8), (6, 64, 64, 8), (5, 33, 32, 8),
+                           (5, 60, 48, 4), (4, 64, 64, 4), (3, 17, 32, 2), (4, 65, 64, 8),
+                           (3, 128, 64, 8), (4, 100, 32, 2), (3, 97, 48, 4), (3, 121, 16, 4)):
+            tag = f"bf16 p={p} B={B} K={K} D={D} H={H}"
+            checks.run(f"attention bwd mma {tag}", attention_bwd, "bf16", B, K, D, H, p)
+            checks.run(f"mha mma {tag}", mha, "bf16", B, K, D, H, p)
+        for B, K in ((7, 12), (9, 60), (6, 64), (4, 120), (3, 152)):
+            checks.run(f"attention bwd grids bf16 p={p} B={B} K={K}", attention_bwd_grids, B, K,
+                       64, 8, p)
+    checks.run("mma kernels refuse head widths", mma_refusals)
     checks.run("kernels refuse what they do not take", kernels_refuse_what_they_do_not_take)
     checks.done()

@@ -237,11 +237,11 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
 
 namespace tc {
 
-using tossctr::ffn_mma::bf16;
+using tossctr::ptx::bf16;
 using tossctr::ffn_mma::kChunk;
 using tossctr::ffn_mma::kWarpRows;
-using tossctr::ffn_mma::round_up;
-using tossctr::ffn_mma::row_stride;
+using tossctr::ptx::round_up;
+using tossctr::ptx::row_stride;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;

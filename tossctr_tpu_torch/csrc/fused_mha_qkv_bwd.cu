@@ -22,31 +22,58 @@
 // What bounds it on the card: at the flagship shapes (B=8192, K=64, D=64,
 // H=8) one call reads x and do (134 MB) and writes dx (67 MB), ~60 us at
 // 3.35 TB/s, and does ~60 GFLOP (~61 us on the bf16 tensor cores): memory
-// and compute floors are about equal.
+// and compute floors are about equal.  In practice the elementwise work of
+// the 268M score elements on the CUDA cores (expf, the division, the keep
+// hash, ds, dbias: ~30 lane instructions an element, ~0.3 ms) sets it, as
+// in fused_mha_bwd.cu.
 //
-// Design: as the forward, one persistent block walks batch rows with Wqkv
-// and the bias resident in shared memory, and a row's x, do, q, k, v,
-// their gradients and one head's (K, K) P and dS never leave shared
-// memory (190 KB a block in bf16: one block an SM).  The weight gradients
-// are sums over the whole batch: each thread keeps its 4x4 tiles of dWqkv
-// in registers and its dbqkv column, the block's dbias lives in shared
-// memory with one owner thread per entry, and at the end every block
-// writes its fp32 partial sums to a scratch buffer; a second kernel
-// (common.cuh reduce_partials) adds the partials in block order, so the
-// result repeats bit for bit (fp32 atomics would not).  Products run on
-// the CUDA cores in fp32; the tensor cores are the next step for speed.
+// Design, bf16 at K <= 128 (mha_qkv_bwd_mma): every product on the
+// tensor cores (mma.sync, bf16 operands, fp32 sums).  One persistent block
+// an SM walks batch rows with Wqkv (bf16, each head's columns padded to 8
+// or 16) resident; a row's x and do come in whole with cp.async into bf16
+// slabs, the next row's do while dWqkv and dx compute.  Per row: q, k, v =
+// round(x Wqkv + b) on mma into slabs; the attention core of mha_mma.cuh
+// (fused_mha_bwd.cu's: (query tile, head) units with the scores, softmax,
+// ds and dq in registers, (key tile, head) units for dk and dv, dbias in
+// owner-lane registers); then dWqkv += x^T round([dq|dk|dv]) on mma, one
+// owner thread an entry, and dx = round([dq|dk|dv] Wqkv^T) through a
+// staging tile to 16-byte stores.  dbqkv sums the unrounded dq, dk, dv
+// from the units' fragments into shared slots, one owner warp a (tile,
+// head).  K is padded to 64 or 128:
+//   - 64 (the flagship): 16 warps in two halves that take alternate head
+//     groups, each half with its own barrier, so the halves' barriers do
+//     not wait on each other, as two blocks of 8 warps would not; dWqkv's
+//     sums in shared memory (registers would not leave the core its 128);
+//     the bias and two buffers of x resident (the next row's x loads while
+//     the current row computes); 223 KB;
+//   - 128 (K = 120): 8 warps; dWqkv's sums added once a row into the
+//     block's partial in device memory (one owner thread an entry, so in a
+//     fixed order); the bias read from device memory, one buffer of x;
+//     208 KB.
+// At the end each block writes its fp32 partials once; a second kernel
+// (common.cuh reduce_partials) adds them in block order, so the result
+// repeats bit for bit (fp32 atomics would not), and a row's dx does not
+// depend on the grid.
 //
-// That row-resident kernel takes K <= 64.  Above it, and at any K when
-// the caller asks, the key-tiled kernel runs: x, Wqkv and an fp32 dx
-// accumulator stay resident for the row, and each head is projected,
-// run through mha_core.cuh head_bwd_tiled (queries in tiles of QT rows:
-// 64 at K = 120, 32 at K = 152) and folded into dx, dWqkv and dbqkv
-// before the next; dWqkv is held in 4x2 register tiles assigned head by
-// head, and the block's dbias partial lives in device memory (one
+// fp32 (and bf16 above K = 128): the CUDA cores.  The row-resident kernel
+// (fp32, K <= 64): as the forward, one persistent block walks batch rows
+// with Wqkv and the bias resident in shared memory, and a row's x, do, q,
+// k, v, their gradients and one head's (K, K) P and dS never leave shared
+// memory (one block an SM); each thread keeps its 4x4 tiles of dWqkv in
+// registers and its dbqkv column, the block's dbias lives in shared
+// memory with one owner thread per entry.  The key-tiled kernel (above K
+// = 64, and at any K in fp32 when the caller asks): x, Wqkv and an fp32
+// dx accumulator stay resident for the row, and each head is projected,
+// run through mha_core.cuh head_bwd_tiled (queries in tiles of QT rows: 64
+// at K = 120, 32 at K = 152) and folded into dx, dWqkv and dbqkv before
+// the next; dWqkv is held in 4x2 register tiles assigned head by head,
+// and the block's dbias partial lives in device memory (one
 // read-modify-write an entry a row and head, by one thread).  Shared
 // memory grows as QT x K.  Same rounding points, same mask, same
 // block-order reduction; dx sums a head's 3 x dh columns at a time.
+// Products in fp32 4x4 register tiles.
 #include "mha_core.cuh"
+#include "mha_mma.cuh"
 
 namespace {
 
@@ -395,43 +422,372 @@ mha_qkv_bwd_tiled_kernel(const T* __restrict__ x, const T* __restrict__ wqkv,
   if (tid < D3) part[D * D3 + tid] = db;
 }
 
-template <typename T>
-int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias,
-           const void* dout, void* dx, float* partials, float* grads, int max_blocks, int B,
-           int K, int D, int H, float scale, Dropout drop, bool tiled, int device,
-           void* stream) {
+// the row-resident kernel (fp32, K <= 64)
+int launch_resident(const void* x, const void* wqkv, const void* bqkv, const void* bias,
+                    const void* dout, void* dx, float* partials, float* grads, int max_blocks,
+                    int B, int K, int D, int H, float scale, Dropout drop, int device,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int grid = 0;
-  cudaError_t e;
-  if (!tiled) {
-    const size_t smem = (size_t)Layout(K, D, (int)sizeof(T)).total * sizeof(float);
-    e = tossctr::prepare_launch(mha_qkv_bwd_kernel<T>, kThreads, smem, max_blocks, device, 1,
-                                &grid);
-    if (e != cudaSuccess) return (int)e;
-    mha_qkv_bwd_kernel<T><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-        static_cast<const T*>(bias), static_cast<const T*>(dout), static_cast<T*>(dx), partials,
-        B, K, D, H, scale, drop);
-  } else {
-    const int dh = D / H;
-    const int QT = tossctr::mha::pick_query_tile(
-        align4(K), tossctr::smem_optin(device),
-        [&](int qt) { return TiledLayout(K, D, dh, (int)sizeof(T), qt); });
-    if (QT == 0) return (int)cudaErrorInvalidValue;  // no tile fits: refused before launch
-    const size_t smem = (size_t)TiledLayout(K, D, dh, (int)sizeof(T), QT).total * sizeof(float);
-    e = tossctr::prepare_launch(mha_qkv_bwd_tiled_kernel<T>, kThreads, smem, max_blocks, device,
-                                1, &grid);
-    if (e != cudaSuccess) return (int)e;
-    mha_qkv_bwd_tiled_kernel<T><<<grid, kThreads, smem, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-        static_cast<const T*>(bias), static_cast<const T*>(dout), static_cast<T*>(dx), partials,
-        B, K, D, H, QT, scale, drop);
-  }
+  const size_t smem = (size_t)Layout(K, D, (int)sizeof(float)).total * sizeof(float);
+  cudaError_t e = tossctr::prepare_launch(mha_qkv_bwd_kernel<float>, kThreads, smem, max_blocks,
+                                          device, 1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  mha_qkv_bwd_kernel<float><<<grid, kThreads, smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(bias),
+      static_cast<const float*>(dout), static_cast<float*>(dx), partials, B, K, D, H, scale,
+      drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)tossctr::launch_reduce(partials, grid, partial_floats(K, D), grads, s);
 }
 
+// the key-tiled kernel (fp32 at any K; bf16 above K = 128)
+template <typename T>
+int launch_tiled(const void* x, const void* wqkv, const void* bqkv, const void* bias,
+                 const void* dout, void* dx, float* partials, float* grads, int max_blocks,
+                 int B, int K, int D, int H, float scale, Dropout drop, int device,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  const int dh = D / H;
+  const int QT = tossctr::mha::pick_query_tile(
+      align4(K), tossctr::smem_optin(device),
+      [&](int qt) { return TiledLayout(K, D, dh, (int)sizeof(T), qt); });
+  if (QT == 0) return (int)cudaErrorInvalidValue;  // no tile fits: refused before launch
+  const size_t smem = (size_t)TiledLayout(K, D, dh, (int)sizeof(T), QT).total * sizeof(float);
+  cudaError_t e = tossctr::prepare_launch(mha_qkv_bwd_tiled_kernel<T>, kThreads, smem,
+                                          max_blocks, device, 1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  mha_qkv_bwd_tiled_kernel<T><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
+      static_cast<const T*>(bias), static_cast<const T*>(dout), static_cast<T*>(dx), partials,
+      B, K, D, H, QT, scale, drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)tossctr::launch_reduce(partials, grid, partial_floats(K, D), grads, s);
+}
+
+// ---- bf16 at K <= 128: the tensor-core kernel ----
+
+namespace tc {
+
+using tossctr::mha_mma::Geo;
+using tossctr::mha_mma::kMaxKP;
+using tossctr::mha_mma::ldp;
+using tossctr::ptx::bf16;
+using tossctr::ptx::round_up;
+using tossctr::ptx::row_stride;
+// dWqkv (DP, 3 NQ) in 16 x 16 units: at most (64 / 16) x (3 * 64 / 16)
+constexpr int kWUnits = 48;
+
+// The kernel's form at KP = 64: two halves of mha_mma's 8 warps, each with
+// its own barrier through a row's head groups, dWqkv summed in shared
+// memory, the bias and two buffers of x resident.  At KP = 128 one half:
+// the row's P and dS buffers double, and dWqkv goes to the block's partial
+// in device memory, the bias is read from device memory, x has one buffer.
+template <int KP>
+struct Form {
+  static constexpr bool kWide = KP > 64;
+  static constexpr int kHalves = kWide ? 1 : 2;
+  static constexpr int kWarps = kHalves * tossctr::mha_mma::kWarps;
+  static constexpr int kThreads = kWarps * 32;
+};
+
+// Wqkv's columns, head-padded: natural column c of [q|k|v] -> which * NQ +
+// h * DHP + e
+__host__ __device__ inline int padded_col(const Geo& g, int c) {
+  const int which = c / g.D, col = c - which * g.D, h = col / g.dh;
+  return which * g.NQ + h * g.DHP + (col - h * g.dh);
+}
+
+template <int KP>
+struct Layout {  // offsets in bytes
+  int DP, LX, LW, LDW;
+  int w, b, bias, x, dout, q, k, v, dq, p, ds, sums, dw, total;
+  __host__ __device__ explicit Layout(const Geo& g) {
+    using F = Form<KP>;
+    DP = round_up(g.D, 16);  // x's columns, Wqkv's rows, padded with zeros
+    LX = row_stride(DP);
+    LW = row_stride(3 * g.NQ);
+    LDW = 3 * g.NQ + 8;  // fp32: a quad's float2 pairs of 8 rows in two wavefronts
+    const int slab = KP * g.RS * 2;
+    w = 0;                                                    // Wqkv (DP, 3 NQ) bf16
+    b = w + DP * LW * 2;                                      // bqkv (3 NQ) fp32
+    bias = b + round_up(3 * g.NQ * 4, 16);                    // (KP, ldp(KP)) bf16
+    x = bias + (F::kWide ? 0 : KP * ldp(KP) * 2);             // (KP, LX) buffers of x
+    dout = x + (F::kWide ? 1 : 2) * KP * LX * 2;              // do's slab
+    q = dout + slab;
+    k = q + slab;  // k, then dk head by head; v, then dv
+    v = k + slab;
+    dq = v + slab;
+    p = dq + slab;  // round(p * keep) of a 16-row unit a warp; the dx staging tile;
+    ds = p + F::kWarps * 16 * ldp(KP) * 2;    // with ds, the dbias flush's scratch
+    sums = ds + F::kWarps * 16 * ldp(KP) * 2;  // (KP / 16, 3, NQ) fp32: dbqkv by tile
+    dw = sums + (KP / 16) * 3 * g.NQ * 4;      // (DP, LDW) fp32: the block's dWqkv
+    total = dw + (F::kWide ? 0 : DP * LDW * 4);
+  }
+};
+
+// cp.async of one batch row's (K, D) x into a (., LX) buffer
+__device__ __forceinline__ void stage_x(bf16* dst, int ld, const bf16* __restrict__ src, int K,
+                                        int D) {
+  const int pe = tossctr::mha_mma::piece(D), per_row = D / pe;
+  for (int i = threadIdx.x; i < K * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i - r * per_row) * pe;
+    if (pe == 8)
+      tossctr::ptx::cp_async16(dst + r * ld + c, src + (size_t)r * D + c);
+    else
+      tossctr::ptx::cp_async8(dst + r * ld + c, src + (size_t)r * D + c, true);
+  }
+}
+
+template <int KP, int DHP>
+__global__ void __launch_bounds__(Form<KP>::kThreads, 1)
+mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
+                const float* __restrict__ bqkv, const bf16* __restrict__ bias,
+                const bf16* __restrict__ dout, bf16* __restrict__ dx,
+                float* __restrict__ partials, int B, int K, int D, int H, float scale,
+                Dropout drop) {
+  using namespace tossctr::mha_mma;
+  using F = Form<KP>;
+  constexpr int kWarpsF = F::kWarps, kThreadsF = F::kThreads;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Geo geo(K, D, H);
+  const Layout<KP> L(geo);
+  const int NQ = geo.NQ, RS = geo.RS, QT = geo.QT, DP = L.DP, LX = L.LX, LW = L.LW, D3 = 3 * D;
+  bf16* w_s = reinterpret_cast<bf16*>(smem + L.w);
+  float* b_s = reinterpret_cast<float*>(smem + L.b);
+  bf16* bias_s = reinterpret_cast<bf16*>(smem + L.bias);
+  bf16* x_s = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* do_s = reinterpret_cast<bf16*>(smem + L.dout);
+  bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
+  bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L.v);
+  bf16* dqs = reinterpret_cast<bf16*>(smem + L.dq);
+  bf16* pbuf = reinterpret_cast<bf16*>(smem + L.p);
+  bf16* dsbuf = reinterpret_cast<bf16*>(smem + L.ds);
+  float* sums = reinterpret_cast<float*>(smem + L.sums);
+  float* dw_s = reinterpret_cast<float*>(smem + L.dw);
+  float* part = partials + (size_t)blockIdx.x * partial_floats(K, D);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int half = warp / tossctr::mha_mma::kWarps;
+  auto grad = [&](int which) -> const bf16* {  // [dq|dk|dv] after a row's heads
+    return which == 0 ? dqs : (which == 1 ? ks : vs);
+  };
+
+  // zeros everywhere: pad rows and columns are never written with anything else
+  for (int i = tid; i < L.total / 16; i += kThreadsF)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (F::kWide)
+    for (int i = tid; i < D * D3; i += kThreadsF) part[i] = 0.f;  // dWqkv's sums
+  __syncthreads();
+  for (int i = tid; i < D * D3; i += kThreadsF) {
+    const int d = i / D3;
+    w_s[d * LW + padded_col(geo, i - d * D3)] = wqkv[i];
+  }
+  for (int i = tid; i < D3; i += kThreadsF) b_s[padded_col(geo, i)] = bqkv[i];
+  if constexpr (!F::kWide)
+    for (int i = tid; i < K * K; i += kThreadsF) {
+      const int r = i / K;
+      bias_s[r * ldp(KP) + i - r * K] = bias[i];
+    }
+  if ((int)blockIdx.x < B) {
+    stage_x(x_s, LX, x + (size_t)blockIdx.x * K * D, K, D);
+    stage_heads(do_s, dout + (size_t)blockIdx.x * K * D, geo);
+  }
+  cp_async_commit();
+
+  const int npairs = 3 * NQ / 16;  // 16-column pairs of [q|k|v]
+  const int mt = DP / 16;          // 16-row tiles of Wqkv
+  float db[KP / 8][4] = {};
+  int it = 0;
+  for (int row = blockIdx.x; row < B; row += gridDim.x, ++it) {
+    const int next = row + gridDim.x;
+    const bf16* xb = x_s + (F::kWide ? 0 : (it & 1) * KP * LX);
+    cp_async_wait<0>();
+    __syncthreads();  // this row's x and do are in; the previous row is done with every buffer
+    if (!F::kWide && next < B)
+      stage_x(x_s + ((it + 1) & 1) * KP * LX, LX, x + (size_t)next * K * D, K, D);
+    cp_async_commit();
+
+    // ---- q|k|v = round(x Wqkv + b): unit (16 rows, 16 columns) ----
+    for (int u = warp; u < QT * npairs; u += kWarpsF) {
+      const int m = u % QT, np = u / QT;
+      float acc[2][4] = {};
+      for (int kk = 0; kk < mt; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, tile_p1(xb, LX, 16 * m, 16 * kk, lane));
+        ldsm_x4_t(b, tile_p1(w_s, LW, 16 * kk, 16 * np, lane));  // Wqkv: [k][n]
+        mma(acc[0], a, b[0], b[1]);
+        mma(acc[1], a, b[2], b[3]);
+      }
+      const int which = (16 * np) / NQ;
+      bf16* dst = which == 0 ? qs : (which == 1 ? ks : vs);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 16 * np + 8 * jj + 2 * t;
+        const float b0 = b_s[c], b1 = b_s[c + 1];
+        const int col = c - which * NQ, r = 16 * m + g;
+        *reinterpret_cast<uint32_t*>(dst + r * RS + col) =
+            pack_bf16(__fadd_rn(acc[jj][0], b0), __fadd_rn(acc[jj][1], b1));
+        *reinterpret_cast<uint32_t*>(dst + (r + 8) * RS + col) =
+            pack_bf16(__fadd_rn(acc[jj][2], b0), __fadd_rn(acc[jj][3], b1));
+      }
+    }
+    __syncthreads();
+
+    if constexpr (F::kWide)
+      row_grads<KP, DHP>(qs, ks, vs, do_s, bias, K, dqs, pbuf, dsbuf, db, sums, geo, row, scale,
+                         drop, half, F::kHalves);
+    else
+      row_grads<KP, DHP>(qs, ks, vs, do_s, bias_s, ldp(KP), dqs, pbuf, dsbuf, db, sums, geo,
+                         row, scale, drop, half, F::kHalves);
+    __syncthreads();  // every head is done: do's slab is free
+    if (next < B) stage_heads(do_s, dout + (size_t)next * K * D, geo);
+    cp_async_commit();
+
+    // ---- dWqkv += x^T round([dq|dk|dv]): unit (16 rows of Wqkv, 16
+    // columns), each entry of the block's sums owned by one thread ----
+    for (int u = warp; u < mt * npairs; u += kWarpsF) {
+      const int m = u % mt, np = u / mt, which = (16 * np) / NQ;
+      const int col = 16 * np - which * NQ;
+      float acc[2][4] = {};
+      for (int kk = 0; kk < QT; ++kk) {
+        uint32_t a[4], b[4];
+        ldsm_x4_t(a, tile_p2(xb, LX, 16 * kk, 16 * m, lane));  // x^T: x is [r][d]
+        ldsm_x4_t(b, tile_p1(grad(which), RS, 16 * kk, col, lane));
+        mma(acc[0], a, b[0], b[1]);
+        mma(acc[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int d = 16 * m + g + 8 * hr, pc = 16 * np + 8 * jj + 2 * t;
+          if constexpr (!F::kWide) {
+            float2* e = reinterpret_cast<float2*>(dw_s + d * L.LDW + pc);
+            const float2 o = *e;
+            *e = make_float2(o.x + acc[jj][2 * hr], o.y + acc[jj][2 * hr + 1]);
+          } else {
+            const int r = pc - which * NQ, h = r / DHP, e = r - h * DHP;
+            if (d < D && h < H && e < geo.dh) {
+              float* dst = part + d * D3 + which * D + h * geo.dh + e;
+              atomicAdd(dst, acc[jj][2 * hr]);
+              atomicAdd(dst + 1, acc[jj][2 * hr + 1]);
+            }
+          }
+        }
+    }
+
+    // ---- dx = round(round([dq|dk|dv]) Wqkv^T) into the staging tile ----
+    bf16* stage = pbuf;  // (KP, LX): free until the next row's heads
+    for (int u = warp; u < QT * mt; u += kWarpsF) {
+      const int m = u % QT, np = u / QT;
+      float acc[2][4] = {};
+      for (int kk = 0; kk < npairs; ++kk) {
+        const int which = (16 * kk) / NQ;
+        uint32_t a[4], b[4];
+        ldsm_x4(a, tile_p1(grad(which), RS, 16 * m, 16 * kk - which * NQ, lane));
+        ldsm_x4(b, tile_p2(w_s, LW, 16 * np, 16 * kk, lane));  // Wqkv^T: Wqkv is [n][k]
+        mma(acc[0], a, b[0], b[1]);
+        mma(acc[1], a, b[2], b[3]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int c = 16 * np + 8 * jj + 2 * t, r = 16 * m + g;
+        *reinterpret_cast<uint32_t*>(stage + r * LX + c) = pack_bf16(acc[jj][0], acc[jj][1]);
+        *reinterpret_cast<uint32_t*>(stage + (r + 8) * LX + c) =
+            pack_bf16(acc[jj][2], acc[jj][3]);
+      }
+    }
+    __syncthreads();  // dx staged; x's one buffer (KP = 128) is free
+    if (F::kWide && next < B) stage_x(x_s, LX, x + (size_t)next * K * D, K, D);
+    cp_async_commit();
+    {
+      const int pe = piece(D), per_row = D / pe;
+      bf16* dst = dx + (size_t)row * K * D;
+      for (int i = tid; i < K * per_row; i += kThreadsF) {
+        const int r = i / per_row, c = (i - r * per_row) * pe;
+        if (pe == 8)
+          *reinterpret_cast<uint4*>(dst + r * D + c) =
+              *reinterpret_cast<const uint4*>(stage + r * LX + c);
+        else
+          *reinterpret_cast<uint2*>(dst + r * D + c) =
+              *reinterpret_cast<const uint2*>(stage + r * LX + c);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- this block's partials: dWqkv (D, 3D), dbqkv (3D), dbias (K, K) ----
+  flush_dbias<KP>(db, reinterpret_cast<float*>(smem + L.p), geo, part + D * D3 + D3);
+  if constexpr (!F::kWide)
+    for (int i = tid; i < D * D3; i += kThreadsF) {
+      const int d = i / D3;
+      part[i] = dw_s[d * L.LDW + padded_col(geo, i - d * D3)];
+    }
+  for (int c = tid; c < D3; c += kThreadsF) {
+    const int pc = padded_col(geo, c), which = pc / NQ, r = pc - which * NQ;
+    float sum = 0.f;
+    for (int tile = 0; tile < QT; ++tile) sum += sums[(tile * 3 + which) * NQ + r];
+    part[D * D3 + c] = sum;
+  }
+}
+
+template <int KP, int DHP>
+int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias,
+           const void* dout, void* dx, float* partials, float* grads, int max_blocks, int B,
+           int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
+  constexpr int threads = Form<KP>::kThreads;
+  const size_t smem = (size_t)Layout<KP>(Geo(K, D, H)).total;
+  int grid = 0;
+  cudaError_t e = tossctr::prepare_launch(mha_qkv_bwd_mma<KP, DHP>, threads, smem, max_blocks,
+                                          device, 1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  mha_qkv_bwd_mma<KP, DHP><<<grid, threads, smem, s>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const bf16*>(bias),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), partials, B, K, D, H, scale,
+      drop);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)tossctr::launch_reduce(partials, grid, partial_floats(K, D), grads, s);
+}
+
+// K padded to 64 or 128, the head to 8 or 16 columns
+int launch_bf16(const void* x, const void* wqkv, const void* bqkv, const void* bias,
+                const void* dout, void* dx, float* partials, float* grads, int max_blocks,
+                int B, int K, int D, int H, float scale, Dropout drop, int device,
+                void* stream) {
+  const bool narrow = D / H <= 8;
+  if (K <= 64)
+    return narrow ? launch<64, 8>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
+                                  K, D, H, scale, drop, device, stream)
+                  : launch<64, 16>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks,
+                                   B, K, D, H, scale, drop, device, stream);
+  return narrow ? launch<128, 8>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
+                                 K, D, H, scale, drop, device, stream)
+                : launch<128, 16>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
+                                  K, D, H, scale, drop, device, stream);
+}
+
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// the shapes the kernel takes: K <= 128, 4 <= dh <= 16, dh % 4 == 0, dWqkv
+// in at most kWUnits units, and x, dx (do) aligned for 16-byte copies
+// where D (dh) is a multiple of 8, else 8-byte ones
+bool takes(int K, int D, int H, const void* x, const void* dout, const void* dx) {
+  if (K > kMaxKP || !tossctr::mha_mma::head_ok(D / H)) return false;
+  const Geo g(K, D, H);
+  if ((round_up(D, 16) / 16) * (3 * g.NQ / 16) > kWUnits) return false;
+  const int xb = D % 8 == 0 ? 16 : 8, db = (D / H) % 8 == 0 ? 16 : 8;
+  return aligned(x, xb) && aligned(dx, xb) && aligned(dout, db);
+}
+
+}  // namespace tc
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, wqkv, bias, do and dx share it;
@@ -441,30 +797,40 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias,
 // (max_blocks, D*3D + 3D + K*K) fp32 scratch; grads: (D*3D + 3D + K*K)
 // fp32 out = [dWqkv (D, 3D) | dbqkv (3D) | dbias (K, K)].  Dropout:
 // keep_thresh (0 = off), keep_scale, seed, as the forward got them.
-// tiled: 0 runs the row-resident kernel for K <= 64 and the key-tiled one
-// above, 1 the key-tiled one at any K.  D <= 64, D % 4 == 0; the
-// key-tiled kernel also dh % 4 == 0.  Returns a cudaError_t code; a shape
-// whose layout does not fit a block's shared memory is refused before
-// any launch.
+// bf16 runs the tensor-core kernel for K <= 128 (head width D / H a
+// multiple of 4 from 4 to 16, x, do and dx 16-byte aligned, 8 where D or
+// dh is not a multiple of 8) and the key-tiled one above; fp32 runs the
+// row-resident kernel for K <= 64 and the key-tiled one above, and tiled
+// = 1 asks for the key-tiled one at any K (bf16 ignores it).  D <= 64, D
+// % 4 == 0; the key-tiled kernel also dh % 4 == 0.  Returns a cudaError_t
+// code; a shape the kernels do not take, or whose layout does not fit a
+// block's shared memory, is refused before any launch.
 extern "C" int tossctr_fused_mha_qkv_bwd(const void* x, const void* wqkv, const void* bqkv,
                                          const void* bias, const void* dout, void* dx,
                                          void* partials, void* grads, int max_blocks, int B,
                                          int K, int D, int H, float scale, unsigned keep_thresh,
                                          float keep_scale, unsigned seed, int tiled, int dtype,
                                          int device, void* stream) {
-  if (!shape_ok(B, K, D, H) || max_blocks < 1) return (int)cudaErrorInvalidValue;
-  const bool use_tiled = tiled != 0 || K > kMaxDim;
-  if (use_tiled && (D / H) % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (!shape_ok(B, K, D, H) || max_blocks < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
   const Dropout drop(keep_thresh, keep_scale, seed);
   float* p = static_cast<float*>(partials);
   float* g = static_cast<float*>(grads);
+  if (dtype == 1 && K <= tc::kMaxKP) {
+    if (!tc::takes(K, D, H, x, dout, dx)) return (int)cudaErrorInvalidValue;
+    return tc::launch_bf16(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H, scale,
+                           drop, device, stream);
+  }
+  const bool use_tiled = tiled != 0 || K > kMaxDim;
+  if (use_tiled && (D / H) % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && !use_tiled)
+    return launch_resident(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H, scale,
+                           drop, device, stream);
   if (dtype == 0)
-    return launch<float>(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H, scale,
-                         drop, use_tiled, device, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H,
-                                 scale, drop, use_tiled, device, stream);
-  return (int)cudaErrorInvalidValue;
+    return launch_tiled<float>(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H,
+                               scale, drop, device, stream);
+  return launch_tiled<__nv_bfloat16>(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D,
+                                     H, scale, drop, device, stream);
 }
 
 extern "C" const char* tossctr_cuda_error_string(int code) {

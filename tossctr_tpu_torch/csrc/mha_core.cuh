@@ -18,10 +18,11 @@
 //
 // The forwards walk a row's queries in tiles of QT rows (the scores and
 // the bias rows of one tile in shared memory); with QT >= K the tile is
-// the whole row.  The backward comes in two forms: row-resident
-// (head_bwd, fused_mha_qkv_bwd.cu's kernel for K <= 64) and key-tiled
-// (head_bwd_tiled, any K; fused_mha_bwd.cu's only kernel); both run the
-// same dS stage (ds_rows) and gradient sums (grad_sums).
+// the whole row.  The backward here is the CUDA-core kernels' (fp32 at any
+// K, bf16 above K = 128; mha_mma.cuh holds the bf16 tensor-core stages)
+// and comes in two forms: row-resident (head_bwd, fused_mha_qkv_bwd.cu's
+// fp32 kernel for K <= 64) and key-tiled (head_bwd_tiled, any K); both run
+// the same dS stage (ds_rows) and gradient sums (grad_sums).
 #pragma once
 
 #include "common.cuh"

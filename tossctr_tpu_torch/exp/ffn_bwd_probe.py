@@ -21,7 +21,6 @@ The last line is a JSON object of the times.
 
 from __future__ import annotations
 
-import ctypes
 import importlib
 import json
 import subprocess
@@ -46,24 +45,6 @@ FLUSH = """      if (warp < kChunk / kWarpRows)
 NO_FLUSH = "      if (acc[0][0] == 12345.f) part[0] = acc[1][1];"
 
 
-def build_without_flush():
-    """fused_ffn_bwd.cu with the flush removed, built beside the kernels
-    -> its C entry point."""
-    src = (_build.CSRC / "fused_ffn_bwd.cu").read_text()
-    if FLUSH not in src:
-        raise RuntimeError("fused_ffn_bwd.cu's flush is not where the probe expects it")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = _build.BUILD_DIR / "fused_ffn_bwd_no_flush.cu"
-    so = _build.BUILD_DIR / "fused_ffn_bwd_no_flush.so"
-    cu.write_text(src.replace(FLUSH, NO_FLUSH))
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
-                    str(cu)], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(so)).tossctr_fused_ffn_bwd
-    fn.argtypes = _build.SIGNATURES["fused_ffn_bwd"][1]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         log("ffn_bwd_probe needs a CUDA card")
@@ -72,7 +53,8 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True).stdout.strip())
-    no_flush = build_without_flush()
+    no_flush = _build.build_variant("fused_ffn_bwd", [("fused_ffn_bwd.cu", FLUSH, NO_FLUSH)],
+                                    "fused_ffn_bwd_no_flush")
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rnd(*shape, std=1.0, dtype=torch.bfloat16):

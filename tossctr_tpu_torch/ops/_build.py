@@ -138,6 +138,31 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def build_variant(name: str, subs, tag: str):
+    """``name``'s library built from a copy of the sources with ``subs``
+    applied ([(file, text, replacement)]: the first match of each text is
+    replaced, a text not found raises), under ``build/kernels/<tag>/``: a
+    probe times a kernel with a part changed or taken out against the
+    kernel as built.  -> its C entry point, with the argument types
+    declared."""
+    d = BUILD_DIR / tag
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(CSRC, d)
+    for f, old, new in subs:
+        src = (d / f).read_text()
+        if old not in src:
+            raise RuntimeError(f"{tag}: {f} does not hold the source the variant replaces")
+        (d / f).write_text(src.replace(old, new, 1))
+    so = d / f"{name}.so"
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(d / f"{name}.cu")], check=True,
+                   capture_output=True, text=True)
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(ctypes.CDLL(str(so)), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def persistent_blocks(t: torch.Tensor, per_sm: int = 1, blocks=None) -> int:
     """The grid of a persistent kernel on ``t``'s device: ``per_sm`` blocks
     an SM (a bound: the attention backwards launch as many as fit, at most

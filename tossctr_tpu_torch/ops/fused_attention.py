@@ -16,11 +16,15 @@ Port of ``tossctr_tpu/ops/pallas_attention.py``:
   ``fuse_qkv`` off runs it.
 
 The kernels take any K: the forwards walk a row's queries in tiles that
-fit a block's shared memory; ``fused_mha``'s backward is key-tiled (one
-head at a time, its queries in tiles), and ``fused_mha_qkv``'s backward
-keeps a row-resident kernel for K <= 64, where it is faster, and runs
-the key-tiled one above (``csrc/mha_core.cuh``).  A shape whose layout
-fits no block is refused before any launch.
+fit a block's shared memory.  In bf16 at K <= 128 (the flagship's 64 and
+the K = 120 config's) both backwards run on the tensor cores
+(``csrc/mha_mma.cuh``: mma.sync on bf16 tiles, a head width D / H of 4,
+8, 12 or 16); above K = 128 (the K = 152 config), and in fp32, on the
+CUDA cores (``csrc/mha_core.cuh``): ``fused_mha``'s
+backward key-tiled (one head at a time, its queries in tiles),
+``fused_mha_qkv``'s row-resident for K <= 64 and key-tiled above.  A
+shape whose layout fits no block, or that a kernel does not take, is
+refused before any launch.
 
 Both drop attention probabilities with the counter-hash mask of the
 absolute (batch row, query, key, head) coordinates (``ops/dropout.py``
@@ -39,11 +43,35 @@ from ._build import DTYPE_CODES, check_launch, load_library, persistent_blocks, 
 from .dropout import attention_keep, kernel_args
 
 
-# fused_mha_qkv_bwd's row-resident kernel takes K <= ROW_RESIDENT_MAX_K,
-# the key-tiled kernels any K; the backwards launch as many persistent
-# blocks as fit, at most BWD_BLOCKS_PER_SM an SM (the partials' rows)
+# the bf16 backwards run their tensor-core kernels for K <= MMA_MAX_K and
+# the key-tiled CUDA-core ones above; fused_mha_qkv_bwd's fp32
+# row-resident kernel takes K <= ROW_RESIDENT_MAX_K.  The backwards launch
+# as many persistent blocks as fit, at most BWD_BLOCKS_PER_SM an SM (the
+# partials' rows): two fit for fused_mha_bwd's tensor-core kernel at K <=
+# 64 (8 warps, 90 KB) and the key-tiled ones, one for its tensor-core
+# kernel at K <= 128 (192 KB), for fused_mha_qkv_bwd's tensor-core kernel
+# (16 warps and 223 KB at K <= 64, 8 warps and 208 KB at K <= 128) and
+# for its row-resident one
+MMA_MAX_K = 128
 ROW_RESIDENT_MAX_K = 64
 BWD_BLOCKS_PER_SM = 2
+# the qkv tensor-core kernel's dWqkv, head-padded, in at most this many
+# 16 x 16 units (csrc/fused_mha_qkv_bwd.cu kWUnits)
+_MMA_WGRAD_UNITS = 48
+
+
+def _mma_head_ok(head_dim: int) -> bool:
+    """The tensor-core backwards' head widths: 4, 8, 12 or 16 (each head
+    padded to 8 or 16 columns)."""
+    return 4 <= head_dim <= 16 and head_dim % 4 == 0
+
+
+def _mma_qkv_ok(D: int, n_heads: int) -> bool:
+    """fused_mha_qkv_bwd's tensor-core kernel also holds dWqkv, (D, 3D)
+    with each head padded, in at most _MMA_WGRAD_UNITS 16 x 16 units."""
+    dh = D // n_heads
+    nq = -(-n_heads * (8 if dh <= 8 else 16) // 16) * 16
+    return _mma_head_ok(dh) and (-(-D // 16)) * (3 * nq // 16) <= _MMA_WGRAD_UNITS
 
 
 def attention_scale(head_dim: int) -> float:
@@ -195,14 +223,14 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     """-> (dx, dwqkv, dbqkv, dbias), the last three fp32 sums over the
     batch: the kernel on a CUDA tensor (per-block fp32 partials reduced in
     a fixed order, so the result repeats bit for bit), the plain version on
-    a CPU tensor.  The card runs the row-resident kernel for K <= 64 and
-    the key-tiled one above.  ``tiled`` asks for the key-tiled one at any
-    K; the model never passes it.  It stays because the choice of kernel
-    at K <= 64 rests on timing both on the same inputs, which no other
-    call can do: ``chip_smoke.py`` does so at the flagship's K each run.
-    ``blocks`` caps the persistent grid (default: as many as fit, at most
-    BWD_BLOCKS_PER_SM an SM); dx does not depend on it, the weight
-    gradients' partials regroup."""
+    a CPU tensor.  In bf16 the card runs the tensor-core kernel for K <=
+    128 (a head width of 4, 8, 12 or 16) and the key-tiled one above; in
+    fp32 the row-resident kernel for K <= 64 and the key-tiled one above.
+    ``tiled`` asks for the fp32 key-tiled kernel at any K (bf16 ignores
+    it); the model never passes it, the card tests do, to hold the
+    key-tiled kernel at small K.  ``blocks`` caps the persistent grid
+    (default: as many as fit, at most BWD_BLOCKS_PER_SM an SM); dx does
+    not depend on it, the weight gradients' partials regroup."""
     _check(x, wqkv, bqkv, bias, n_heads, dropout_p)
     if do.shape != x.shape or do.dtype != x.dtype or do.device != x.device:
         raise ValueError(f"do must match x: {tuple(do.shape)} {do.dtype} {do.device}")
@@ -213,7 +241,12 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     B, K, D = x.shape
     if D > 64 or D % 4:
         raise ValueError(f"fused_mha_qkv_bwd kernel takes D <= 64, D % 4 == 0; got D={D}")
-    if (tiled or K > ROW_RESIDENT_MAX_K) and (D // n_heads) % 4:
+    if x.dtype == torch.bfloat16 and K <= MMA_MAX_K:
+        if not _mma_qkv_ok(D, n_heads):
+            raise ValueError(f"the tensor-core fused_mha_qkv_bwd kernel takes a head width "
+                             f"D / n_heads of 4, 8, 12 or 16 (with dWqkv in "
+                             f"{_MMA_WGRAD_UNITS} units); got D={D}, n_heads={n_heads}")
+    elif (tiled or K > ROW_RESIDENT_MAX_K) and (D // n_heads) % 4:
         raise ValueError(f"the key-tiled fused_mha_qkv_bwd kernel takes a head width "
                          f"D / n_heads divisible by 4; got {D // n_heads}")
     lib = load_library("fused_mha_qkv_bwd")
@@ -345,9 +378,10 @@ def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int
 def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0,
                   blocks=None):
     """-> (dq, dk, dv, dbias), dbias the fp32 sum over the batch and the
-    heads: the key-tiled kernel on a CUDA tensor (per-block fp32 partials
-    reduced in a fixed order, so the result repeats bit for bit), the
-    plain version on a CPU tensor.  ``blocks`` caps the persistent grid
+    heads: on a CUDA tensor the tensor-core kernel in bf16 at K <= 128 (a
+    head width of 4, 8, 12 or 16), else the key-tiled one (per-block fp32
+    partials reduced in a fixed order, so the result repeats bit for
+    bit); the plain version on a CPU tensor.  ``blocks`` caps the persistent grid
     (default: as many as fit, at most BWD_BLOCKS_PER_SM an SM); dq, dk, dv
     do not depend on it, dbias's partials regroup."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
@@ -360,6 +394,9 @@ def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed:
     B, K, D = q.shape
     if D > 64:
         raise ValueError(f"fused_mha_bwd kernel takes D <= 64; got D={D}")
+    if q.dtype == torch.bfloat16 and K <= MMA_MAX_K and not _mma_head_ok(D // n_heads):
+        raise ValueError(f"the tensor-core fused_mha_bwd kernel takes a head width D / n_heads "
+                         f"of 4, 8, 12 or 16; got {D // n_heads}")
     lib = load_library("fused_mha_bwd")
     blocks = persistent_blocks(q, per_sm=BWD_BLOCKS_PER_SM, blocks=blocks)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -400,7 +437,8 @@ def fused_mha(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0
     q, k, v and bias.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    or raise.  The backward kernel takes D <= 64."""
+    or raise.  The backward kernel takes D <= 64 and, in bf16 at K <= 128,
+    a head width of 4, 8, 12 or 16."""
     return _FusedMHA.apply(q, k, v, bias, n_heads, float(dropout_p), int(seed))
 
 
