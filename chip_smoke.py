@@ -13,11 +13,13 @@
    version (error and tolerance), its time from CUDA events beside the
    plain version's, a PyTorch yardstick where PyTorch computes the same
    function, and the least time the card could take; for the kernels
-   with a bf16 tensor-core form (``fused_ffn`` and its backward, the two
-   attention backwards) also their TFLOP/s and share of the bound, the
-   attention backwards' times with dropout off (their yardsticks have
-   none), each kernel's registers,
-   static shared memory and spills (ptxas's report of the build) and,
+   with a bf16 tensor-core form (``fused_ffn`` and its backward,
+   ``fused_mha``'s forward, the two attention backwards) also their
+   TFLOP/s and share of the bound (``fused_mha_qkv``'s forward's too: its
+   warp-unit kernel runs FFMA chains on the CUDA cores), the attention
+   backwards' times with dropout off (their yardsticks have none), each
+   kernel's registers, static shared memory and spills (ptxas's report of
+   the build, ``fused_mha_qkv``'s forward's included) and,
    where the toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in
    its SASS (a bf16 tensor-core kernel without them fails).  Beside
    them: the four attention kernels at the larger-K configs' shapes (K =
@@ -205,15 +207,16 @@ def mha_bwd_flops(B, K, D):
     return 10 * B * K * K * D
 
 
-def tensor_core_rows(results, flops):
+def tensor_core_rows(results, flops, need_mma=True):
     """Log each named row's TFLOP/s and share of its bound, and attach the
-    build report of its library (``tensor_core_report``)."""
+    build report of its library (``tensor_core_report``; ``need_mma``
+    False for a library whose bf16 kernel runs on the CUDA cores)."""
     for name, n in flops.items():
         r = results[name]
         log(f"[kernel] {name} bf16: {n / r['ms'] * 1e-9:.4f} TFLOP/s, "
             f"{r['bound_ms'] / r['ms']:.2%} of the bound ({r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call {r['library_ms']:.4f} ms)")
-        r["build"] = tensor_core_report(name)
+        r["build"] = tensor_core_report(name, need_mma)
 
 
 def check_close(name, got, want, band):
@@ -343,6 +346,9 @@ def kernel_phase(cfg, dev):
                      "F.scaled_dot_product_attention (retain_graph; no dropout, no dbias)",
     )
     del x, do, out, xg, wg, bg, bw
+    # fused_mha_qkv's bf16 forward runs FFMA chains (mha_qkv_fwd_chain): its
+    # registers and spills are reported, no tensor-core instruction is asked
+    tensor_core_rows(results, {"fused_mha_qkv": 2 * B * K * D * (3 * D + 2 * K)}, need_mma=False)
     tensor_core_rows(results, {"fused_mha_qkv_bwd": qkv_bwd_flops(B, K, D)})
 
     # ---- fused_block_tail: x, o (B*K, D) ----
@@ -799,17 +805,18 @@ def separate_kernel_rows(cfg, dev, g):
         library_call="backward of the three-call FFN composite (retain_graph; no dropout)",
     )
     del fargs, x, w1, b1, w2, b2, dy, bw, leaves, out
-    tensor_core_rows(results, {"fused_mha_bwd": mha_bwd_flops(B, K, D),
+    tensor_core_rows(results, {"fused_mha": 4 * B * K * K * D,
+                               "fused_mha_bwd": mha_bwd_flops(B, K, D),
                                "fused_ffn": 4 * N * D * Fh, "fused_ffn_bwd": 10 * N * D * Fh})
     return results
 
 
-def tensor_core_report(name):
+def tensor_core_report(name, need_mma=True):
     """Registers, static shared memory and spills of each kernel in the
     library ``name`` (ptxas's report of its build) and, where the toolkit
     has ``cuobjdump``, the HMMA / HGMMA instructions in each kernel's SASS.
-    Fails if ``cuobjdump`` finds no tensor-core instruction in the bf16
-    tensor-core kernel (its name holds ``_mma``)."""
+    With ``need_mma``, fails if ``cuobjdump`` finds no tensor-core
+    instruction in the bf16 tensor-core kernel (its name holds ``_mma``)."""
     from tossctr_tpu_torch.ops._build import ptxas_report, sass_counts
 
     ptxas, sass = ptxas_report(name), sass_counts(name)
@@ -821,7 +828,7 @@ def tensor_core_report(name):
             f"shared memory, spill stores {r['spill_stores']} / loads {r['spill_loads']} bytes; "
             + ("SASS " + ", ".join(f"{op} {n}" for op, n in ops.items()) if ops is not None
                else "SASS not read (no cuobjdump)"))
-    if sass is not None:
+    if need_mma and sass is not None:
         mma = [fn for fn in sass if "_mma" in fn]
         if not mma or any(sum(sass[fn].values()) == 0 for fn in mma):
             raise AssertionError(f"{name}: no tensor-core instruction in the bf16 kernels {mma}")

@@ -1,6 +1,6 @@
-"""The bf16 attention backwards' tensor-core kernels, what the CPU can check
-of them (the kernels themselves run only on the card, in
-test_torch_cuda_kernels.py):
+"""The bf16 attention kernels' warp-unit forms (both forwards, both
+backwards), what the CPU can check of them (the kernels themselves run
+only on the card, in test_torch_cuda_kernels.py):
 
 * the softmax's division (``csrc/mha_mma.cuh`` ``div_rn``): one
   reciprocal a row rounded to nearest, then RN(e r) corrected once with
@@ -9,10 +9,14 @@ test_torch_cuda_kernels.py):
   arithmetic on 4,000 float32 pairs drawn as the softmax draws them (e =
   exp(s - max) in (0, 1], l their row sum in [1, 152]) and on the edges
   (e = l, e = 0, powers of two);
-* the wrappers' shape rules match the C sources' constants: K <= 128
-  (``kMaxKP``), head widths 4 to 16 in steps of 4 (``head_ok``), the qkv
-  kernel's dWqkv in at most 48 units of 16 x 16 (``kWUnits``), and the
-  head-padded widths the rules imply at the shapes the card tests run.
+* the wrappers' shape rules match the C sources' constants: the
+  backwards' K <= 128 (``kMaxKP``), the forwards' K <= 160
+  (``kMaxKPFwd``) with the heads padded to at most 64 columns
+  (``kMaxFwdNQ``), head widths 4 to 16 in steps of 4 (``head_ok``), the
+  qkv backward's dWqkv in at most 48 units of 16 x 16 (``kWUnits``), and
+  the head-padded widths the rules imply at the shapes the card tests
+  run; the forwards' C entry points refuse, for the warp-unit kernel,
+  the shapes the wrapper's rule sends to the tiled one.
 
 One test item (see ``_torch_helpers``).
 """
@@ -55,6 +59,8 @@ def div_rn(e: Fraction, l: Fraction) -> Fraction:
 
 
 def test_attention_mma_division_and_shape_rules():
+    import torch
+
     fa = __import__("tossctr_tpu_torch.ops.fused_attention", fromlist=["x"])
 
     def division_is_correctly_rounded():
@@ -77,8 +83,28 @@ def test_attention_mma_division_and_shape_rules():
         assert "return dh >= 4 && dh <= 16 && dh % 4 == 0;" in core
         assert re.search(r"constexpr int kWUnits = (\d+);", qkv).group(1) == str(
             fa._MMA_WGRAD_UNITS)
+        assert re.search(r"constexpr int kMaxKPFwd = (\d+);", core).group(1) == str(
+            fa.MMA_FWD_MAX_K)
+        assert re.search(r"constexpr int kMaxFwdNQ = (\d+);", core).group(1) == str(
+            fa._MMA_FWD_MAX_NQ)
         takes = [dh for dh in range(1, 65) if fa._mma_head_ok(dh)]
         assert takes == [4, 8, 12, 16], takes
+        assert ("return g.K <= kMaxKPFwd && head_ok(g.dh) && g.H * g.DHP <= kMaxFwdNQ;"
+                in core)
+        for name in ("fused_mha.cu", "fused_mha_qkv.cu"):
+            src = (CSRC / name).read_text()
+            assert "!tossctr::mha_mma::fwd_unit_shape(tossctr::mha_mma::Geo(K, D, H))" in src, name
+        # (dtype, K, D, H) -> the forwards run their warp-unit kernels: bf16,
+        # K <= 160, dh 4-16, the heads padded to at most 64 columns
+        bf, f32 = torch.bfloat16, torch.float32
+        for (dt, K, D, H), ok in {(bf, 64, 64, 8): True, (bf, 120, 64, 8): True,
+                                  (bf, 152, 64, 8): True, (bf, 160, 64, 4): True,
+                                  (bf, 13, 32, 8): True, (bf, 77, 48, 4): True,
+                                  (bf, 80, 32, 2): True, (bf, 161, 64, 8): False,
+                                  (bf, 64, 64, 16): False, (bf, 64, 64, 2): False,
+                                  (bf, 64, 96, 8): False, (bf, 64, 24, 4): False,
+                                  (f32, 64, 64, 8): False}.items():
+            assert fa.fwd_unit_kernel(dt, K, D, H) is ok, (dt, K, D, H)
         # (D, H) -> the qkv kernel takes it: its dWqkv (round_up(D, 16), 3 NQ)
         # with NQ = round_up(H * (8 or 16), 16) in at most 48 units of 16 x 16
         for (D, H), ok in {(64, 8): True, (16, 4): True, (64, 4): True, (48, 4): True,

@@ -12,8 +12,15 @@ attention kernels at K = 12 and 61 (not multiples of 4 or 8) and at K =
 80, 120 and 152 and at a ragged K = 77 (the backwards' key-tiled
 kernels; the forwards' query tiles), ``fused_mha_qkv``'s fp32
 key-tiled backward also at K = 13 and 64 on request, the two bf16
-backwards' tensor-core kernels (K <= 128) at every head width they take
-(4, 8, 12, 16), at K = 12, 17, 33, 60, 64, 65, 97, 100, 121 and 128, at
+forwards' warp-unit kernels (K <= 160; ``fused_mha``'s on the tensor
+cores, ``fused_mha_qkv``'s bit-equal to its tiled kernel) at K = 12, 13,
+60, 64, 77, 80, 120, 128, 129, 152 and 160, at every head width they
+take (4, 8, 12, 16; D = 32, 48 and 64), at grids of 1 and 7 blocks,
+beside the tiled CUDA-core kernels at the bf16 shapes they keep (a head
+width of 32, heads padded past 64 columns, K = 161) and the refusal of
+unaligned tensors, the two bf16 backwards' tensor-core kernels (K <=
+128) at every head width they take (4, 8, 12, 16), at K = 12, 17, 33,
+60, 64, 65, 97, 100, 121 and 128, at
 grids of 1 and 7 blocks (and the CUDA-core ones at K = 152), through
 autograd,
 and their refusals of the head widths they do not take,
@@ -258,6 +265,75 @@ def test_cuda_kernels_match_plain_versions():
                         close(f"weight gradient {i} at {blocks} blocks", "f32", w_, u)
             for i, (u, ref) in enumerate(zip(runs[None], plain(*args))):
                 close(f"output {i}", "bf16", u, ref, activation=i < n_act)
+
+    def forward_grids(B, K, D, H, p, unit=True):
+        """Both bf16 forwards at grids of 1, 7 and the default blocks, on
+        the kernel ``fwd_unit_kernel`` picks for the shape (the warp-unit
+        one unless ``unit`` is False): the output bit-equal across the
+        grids and between two calls, the default grid within the bf16 band
+        of the plain version; ``fused_mha_qkv``'s bit-equal to the tiled
+        CUDA-core kernel's (its FFMA chains run in that kernel's order)."""
+        fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+        assert fa.fwd_unit_kernel(torch.bfloat16, K, D, H) is unit, (K, D, H)
+        (x, w, b, bias, _), _ = attn_args("bf16", B, K, D, H)
+        (q, k, v, mbias, _), _ = mha_args("bf16", B, K, D, H)
+        for name, fn, args, plain, counter in (
+                ("fused_mha_qkv", fa.fused_mha_qkv_fwd, (x, w, b, bias, H, p, SEED),
+                 fused_mha_qkv_reference, fused_mha_qkv),
+                ("fused_mha", fa.fused_mha_fwd, (q, k, v, mbias, H, p, SEED),
+                 fused_mha_reference, fused_mha)):
+            before = counter.launches
+            runs = {blocks: fn(*args, blocks=blocks) for blocks in (None, 1, 7)}
+            again = fn(*args)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 4, name
+            assert torch.equal(runs[None], again), f"{name} changed between two calls"
+            for blocks in (1, 7):
+                assert torch.equal(runs[None], runs[blocks]), f"{name} moved with the grid"
+            close(name, "bf16", runs[None], plain(*args))
+        assert torch.equal(fa.fused_mha_qkv_fwd(x, w, b, bias, H, p, SEED),
+                           qkv_fwd_tiled(x, w, b, bias, H, p)), \
+            "fused_mha_qkv's warp-unit kernel differs from the tiled one"
+
+    def qkv_fwd_tiled(x, w, b, bias, H, p):
+        """``fused_mha_qkv``'s forward on its tiled CUDA-core kernel, by the
+        C entry point (``unit_kernel`` 0), at a shape the wrapper sends to
+        the warp-unit kernel."""
+        from tossctr_tpu_torch.ops import _build
+        from tossctr_tpu_torch.ops.dropout import kernel_args
+
+        fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+        B, K, D = x.shape
+        out = torch.empty_like(x)
+        lib = _build.load_library("fused_mha_qkv")
+        rc = lib.tossctr_fused_mha_qkv_fwd(
+            *(t.data_ptr() for t in (x, w, b, bias)), out.data_ptr(), B, K, D, H,
+            fa.attention_scale(D // H), *kernel_args(p, SEED), 0, 0, _build.DTYPE_CODES[x.dtype],
+            x.device.index, _build.stream_of(x))
+        _build.check_launch(lib, rc, "fused_mha_qkv")
+        return out
+
+    def forward_refusals():
+        """The warp-unit forwards refuse unaligned tensors before any
+        launch (no other kernel takes over); the tiled forward refuses a K
+        whose query tile fits no block."""
+        fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+        B, K, D, H = 3, 64, 64, 8
+        (x, w, b, bias, _), _ = attn_args("bf16", B, K, D, H)
+        (q, k, v, mbias, _), _ = mha_args("bf16", B, K, D, H)
+        off = torch.zeros(B * K * D + 1, dtype=torch.bfloat16, device=dev)[1:].view(B, K, D)
+        off.copy_(x)  # contiguous, 2 bytes past a 16-byte boundary
+        before = (fused_mha_qkv.launches, fused_mha.launches)
+        with pytest.raises(RuntimeError):
+            fa.fused_mha_qkv_fwd(off, w, b, bias, H)
+        with pytest.raises(RuntimeError):
+            fa.fused_mha_fwd(q, off, v, mbias, H)
+        wide = 4000  # (K, D) q, k, v of one row exceed a block's shared memory
+        big = torch.zeros(1, wide, D, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(RuntimeError):
+            fa.fused_mha_fwd(big, big, big, torch.zeros(wide, wide, dtype=big.dtype, device=dev),
+                             H)
+        assert (fused_mha_qkv.launches, fused_mha.launches) == before
 
     def mma_refusals():
         """The bf16 tensor-core backwards refuse the head widths they do not
@@ -590,6 +666,21 @@ def test_cuda_kernels_match_plain_versions():
         for B, K in ((7, 12), (9, 60), (6, 64), (4, 120), (3, 152)):
             checks.run(f"attention bwd grids bf16 p={p} B={B} K={K}", attention_bwd_grids, B, K,
                        64, 8, p)
+    # the bf16 forwards' warp-unit kernels (K <= 160: K padded to 64, 128
+    # or 160) at every head width they take (dh 4, 8, 12, 16 at D = 32, 48,
+    # 64), the flagship's K = 60 and 64, ragged K, each padding's ends, the
+    # K = 120 and 152 configs'; and the bf16 shapes the tiled kernels keep:
+    # a head width of 32, 16 heads of 4 (padded to 128 columns), K = 161
+    for p in (0.0, P_DROP):
+        for B, K, D, H in ((7, 12, 64, 8), (5, 13, 32, 8), (9, 60, 64, 8), (6, 64, 64, 4),
+                           (5, 77, 48, 4), (6, 80, 32, 2), (4, 120, 64, 8), (4, 128, 48, 4),
+                           (3, 129, 64, 8), (3, 152, 64, 8), (3, 152, 32, 8), (3, 160, 64, 4)):
+            checks.run(f"forward grids bf16 p={p} B={B} K={K} D={D} H={H}", forward_grids, B,
+                       K, D, H, p)
+        for B, K, D, H in ((5, 64, 64, 2), (5, 64, 64, 16), (3, 161, 64, 8)):
+            checks.run(f"forward grids tiled bf16 p={p} B={B} K={K} D={D} H={H}",
+                       forward_grids, B, K, D, H, p, False)
+    checks.run("forwards refuse unaligned tensors", forward_refusals)
     checks.run("mma kernels refuse head widths", mma_refusals)
     checks.run("kernels refuse what they do not take", kernels_refuse_what_they_do_not_take)
     checks.done()

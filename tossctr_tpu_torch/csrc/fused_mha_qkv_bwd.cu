@@ -495,13 +495,6 @@ struct Form {
   static constexpr int kThreads = kWarps * 32;
 };
 
-// Wqkv's columns, head-padded: natural column c of [q|k|v] -> which * NQ +
-// h * DHP + e
-__host__ __device__ inline int padded_col(const Geo& g, int c) {
-  const int which = c / g.D, col = c - which * g.D, h = col / g.dh;
-  return which * g.NQ + h * g.DHP + (col - h * g.dh);
-}
-
 template <int KP>
 struct Layout {  // offsets in bytes
   int DP, LX, LW, LDW;
@@ -529,19 +522,6 @@ struct Layout {  // offsets in bytes
     total = dw + (F::kWide ? 0 : DP * LDW * 4);
   }
 };
-
-// cp.async of one batch row's (K, D) x into a (., LX) buffer
-__device__ __forceinline__ void stage_x(bf16* dst, int ld, const bf16* __restrict__ src, int K,
-                                        int D) {
-  const int pe = tossctr::mha_mma::piece(D), per_row = D / pe;
-  for (int i = threadIdx.x; i < K * per_row; i += blockDim.x) {
-    const int r = i / per_row, c = (i - r * per_row) * pe;
-    if (pe == 8)
-      tossctr::ptx::cp_async16(dst + r * ld + c, src + (size_t)r * D + c);
-    else
-      tossctr::ptx::cp_async8(dst + r * ld + c, src + (size_t)r * D + c, true);
-  }
-}
 
 template <int KP, int DHP>
 __global__ void __launch_bounds__(Form<KP>::kThreads, 1)
@@ -612,30 +592,7 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
       stage_x(x_s + ((it + 1) & 1) * KP * LX, LX, x + (size_t)next * K * D, K, D);
     cp_async_commit();
 
-    // ---- q|k|v = round(x Wqkv + b): unit (16 rows, 16 columns) ----
-    for (int u = warp; u < QT * npairs; u += kWarpsF) {
-      const int m = u % QT, np = u / QT;
-      float acc[2][4] = {};
-      for (int kk = 0; kk < mt; ++kk) {
-        uint32_t a[4], b[4];
-        ldsm_x4(a, tile_p1(xb, LX, 16 * m, 16 * kk, lane));
-        ldsm_x4_t(b, tile_p1(w_s, LW, 16 * kk, 16 * np, lane));  // Wqkv: [k][n]
-        mma(acc[0], a, b[0], b[1]);
-        mma(acc[1], a, b[2], b[3]);
-      }
-      const int which = (16 * np) / NQ;
-      bf16* dst = which == 0 ? qs : (which == 1 ? ks : vs);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = 16 * np + 8 * jj + 2 * t;
-        const float b0 = b_s[c], b1 = b_s[c + 1];
-        const int col = c - which * NQ, r = 16 * m + g;
-        *reinterpret_cast<uint32_t*>(dst + r * RS + col) =
-            pack_bf16(__fadd_rn(acc[jj][0], b0), __fadd_rn(acc[jj][1], b1));
-        *reinterpret_cast<uint32_t*>(dst + (r + 8) * RS + col) =
-            pack_bf16(__fadd_rn(acc[jj][2], b0), __fadd_rn(acc[jj][3], b1));
-      }
-    }
+    project_qkv_mma<kWarpsF>(xb, LX, w_s, LW, b_s, qs, ks, vs, geo, DP);
     __syncthreads();
 
     if constexpr (F::kWide)

@@ -58,7 +58,7 @@ VARIANTS = {
     "mha_no_key_tiles": (MHA, [("mha_mma.cuh", "    if (on)\n      key_tile_grads<KP, DHP>(",
                                 "    if (false)\n      key_tile_grads<KP, DHP>(")], (0, 3)),
     "qkv_no_core": (QKV, [("mha_mma.cuh",
-                           "for (int grp = half; grp < geo.groups; grp += halves)",
+                           "for (int grp = half; grp < gr.n; grp += halves)",
                            "for (int grp = half; grp < 0; grp += halves)")], ()),
     "qkv_no_wgrad_dx": (QKV, [(f"{QKV}.cu",
                                "for (int u = warp; u < mt * npairs; u += kWarpsF) {",

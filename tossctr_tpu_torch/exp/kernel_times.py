@@ -7,14 +7,18 @@ one call on one card to hold them against each other:
     python tossctr_tpu_torch/exp/kernel_times.py --root <checkout>
 
 Prints the card's name and power limit, then one JSON line: {"root": ...,
-"ms": {row: ms}}.  It imports only the package of ``--root`` and reads
-only the kernels' public wrappers, so any checkout since the port's
-tensor-core PRs can be timed by it.
+"ms": {row: ms}, "fp32_sha1": {row: digest}}, the digests those of the
+two attention forwards' fp32 outputs (their CUDA-core kernels) on the
+same inputs, so two checkouts' fp32 bits can be held against each other.
+It imports only the package of ``--root`` and reads only the kernels'
+public wrappers, so any checkout since the port's tensor-core PRs can be
+timed by it.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -88,8 +92,13 @@ def main(argv=None) -> int:
         "dump_attention_keep": lambda: masks.dump_attention_keep(B, K, H, P_DROP, SEED, dev),
         "dump_ffn_keep": lambda: masks.dump_ffn_keep(N, FH, P_DROP, SEED, dev),
     }
-    print(json.dumps({"root": root, "ms": {n: cuda_time_ms(f) for n, f in rows.items()}}),
-          flush=True)
+    ms = {n: cuda_time_ms(f) for n, f in rows.items()}
+    f32 = {"fused_mha_qkv": ops.fused_mha_qkv(x.float(), wqkv.float(), bqkv, bias.float(), H,
+                                              P_DROP, SEED),
+           "fused_mha": ops.fused_mha(q.float(), k.float(), v.float(), bias.float(), H, P_DROP,
+                                      SEED)}
+    sha1 = {n: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest() for n, t in f32.items()}
+    print(json.dumps({"root": root, "ms": ms, "fp32_sha1": sha1}), flush=True)
     return 0
 
 

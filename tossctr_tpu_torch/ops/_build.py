@@ -44,10 +44,11 @@ _DROP = [_U, _F, _U]
 # stream as c_void_p (ctypes would otherwise pass them as 32-bit ints),
 # sizes as c_int; each returns a cudaError_t code.  The persistent
 # kernels take the most blocks their grid may have (the attention
-# forwards: 0 for as many as fit on the SMs)
+# forwards: 0 for as many as fit on the SMs, then whether to run the
+# warp-unit kernel)
 SIGNATURES = {
     "fused_mha_qkv": ("tossctr_fused_mha_qkv_fwd",
-                      [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _I, _P]),
+                      [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I] * 4 + [_P]),
     "fused_block_tail": ("tossctr_fused_block_tail_fwd",
                          [_P] * 11 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_mha_qkv_bwd": ("tossctr_fused_mha_qkv_bwd",
@@ -56,7 +57,7 @@ SIGNATURES = {
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
     "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
     "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I, _I, _P]),
-    "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I, _I, _I, _P]),
+    "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I] * 4 + [_P]),
     "fused_mha_bwd": ("tossctr_fused_mha_bwd",
                       [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
     "fused_ffn": ("tossctr_fused_ffn_fwd", [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P]),
@@ -143,7 +144,8 @@ def build_variant(name: str, subs, tag: str):
     applied ([(file, text, replacement)]: the first match of each text is
     replaced, a text not found raises), under ``build/kernels/<tag>/``: a
     probe times a kernel with a part changed or taken out against the
-    kernel as built.  -> its C entry point, with the argument types
+    kernel as built; ptxas's report lands beside it as
+    ``<name>.ptxas.txt``.  -> its C entry point, with the argument types
     declared."""
     d = BUILD_DIR / tag
     shutil.rmtree(d, ignore_errors=True)
@@ -154,8 +156,9 @@ def build_variant(name: str, subs, tag: str):
             raise RuntimeError(f"{tag}: {f} does not hold the source the variant replaces")
         (d / f).write_text(src.replace(old, new, 1))
     so = d / f"{name}.so"
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(d / f"{name}.cu")], check=True,
-                   capture_output=True, text=True)
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(so), str(d / f"{name}.cu")],
+                          check=True, capture_output=True, text=True)
+    (d / f"{name}.ptxas.txt").write_text(done.stdout + done.stderr)
     fn_name, argtypes = SIGNATURES[name]
     fn = getattr(ctypes.CDLL(str(so)), fn_name)
     fn.argtypes = argtypes

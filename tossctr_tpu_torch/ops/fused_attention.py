@@ -15,15 +15,22 @@ Port of ``tossctr_tpu/ops/pallas_attention.py``:
   ``fused_mha_bwd_reference``.  ``MultiHeadSelfAttention`` with
   ``fuse_qkv`` off runs it.
 
-The kernels take any K: the forwards walk a row's queries in tiles that
-fit a block's shared memory.  In bf16 at K <= 128 (the flagship's 64 and
-the K = 120 config's) both backwards run on the tensor cores
-(``csrc/mha_mma.cuh``: mma.sync on bf16 tiles, a head width D / H of 4,
-8, 12 or 16); above K = 128 (the K = 152 config), and in fp32, on the
-CUDA cores (``csrc/mha_core.cuh``): ``fused_mha``'s
-backward key-tiled (one head at a time, its queries in tiles),
-``fused_mha_qkv``'s row-resident for K <= 64 and key-tiled above.  A
-shape whose layout fits no block, or that a kernel does not take, is
+The kernels take any K.  In bf16 both forwards run their warp-unit
+kernels (``csrc/mha_mma.cuh``: a warp a (16-query tile, head) unit, the
+scores and the softmax in registers) at K <= 160 (the flagship's 64, the
+K = 120 and K = 152 configs) with a head width D / H of 4, 8, 12 or 16
+and the H heads, each padded to 8 or 16 columns, at most 64 columns
+wide: ``fused_mha``'s on the tensor cores (mma.sync on bf16 tiles),
+``fused_mha_qkv``'s on FFMA chains in the plain version's order, bit-equal
+to the tiled CUDA-core kernel, since the bf16 training step it runs in is
+held to its plain version's bits (``csrc/fused_mha_qkv.cu``).  Both
+backwards run on the tensor cores at K <= 128 with a head width of 4, 8,
+12 or 16.  The other shapes, and fp32, run on the CUDA cores
+(``csrc/mha_core.cuh``): the forwards walk a row's queries in tiles that
+fit a block's shared memory, ``fused_mha``'s backward is key-tiled (one
+head at a time, its queries in tiles), ``fused_mha_qkv``'s row-resident
+for K <= 64 and key-tiled above.  The choice is by dtype and shape only.
+A shape whose layout fits no block, or that a kernel does not take, is
 refused before any launch.
 
 Both drop attention probabilities with the counter-hash mask of the
@@ -43,15 +50,21 @@ from ._build import DTYPE_CODES, check_launch, load_library, persistent_blocks, 
 from .dropout import attention_keep, kernel_args
 
 
-# the bf16 backwards run their tensor-core kernels for K <= MMA_MAX_K and
-# the key-tiled CUDA-core ones above; fused_mha_qkv_bwd's fp32
-# row-resident kernel takes K <= ROW_RESIDENT_MAX_K.  The backwards launch
+# the bf16 forwards run their warp-unit kernels for K <= MMA_FWD_MAX_K, a
+# head width _mma_head_ok takes and the heads' padded width at most
+# _MMA_FWD_MAX_NQ (csrc/mha_mma.cuh kMaxKPFwd, head_ok, kMaxFwdNQ), the
+# tiled CUDA-core ones at every other shape; the bf16 backwards run their
+# tensor-core kernels for K <= MMA_MAX_K and the key-tiled CUDA-core ones
+# above; fused_mha_qkv_bwd's fp32 row-resident kernel takes K <=
+# ROW_RESIDENT_MAX_K.  The backwards launch
 # as many persistent blocks as fit, at most BWD_BLOCKS_PER_SM an SM (the
 # partials' rows): two fit for fused_mha_bwd's tensor-core kernel at K <=
 # 64 (8 warps, 90 KB) and the key-tiled ones, one for its tensor-core
 # kernel at K <= 128 (192 KB), for fused_mha_qkv_bwd's tensor-core kernel
 # (16 warps and 223 KB at K <= 64, 8 warps and 208 KB at K <= 128) and
 # for its row-resident one
+MMA_FWD_MAX_K = 160
+_MMA_FWD_MAX_NQ = 64
 MMA_MAX_K = 128
 ROW_RESIDENT_MAX_K = 64
 BWD_BLOCKS_PER_SM = 2
@@ -66,12 +79,27 @@ def _mma_head_ok(head_dim: int) -> bool:
     return 4 <= head_dim <= 16 and head_dim % 4 == 0
 
 
+def _padded_heads(D: int, n_heads: int) -> int:
+    """The H heads' width in the warp-unit kernels' slabs: each head
+    padded to 8 or 16 columns."""
+    return n_heads * (8 if D // n_heads <= 8 else 16)
+
+
+def fwd_unit_kernel(dtype, K: int, D: int, n_heads: int) -> bool:
+    """Whether a forward of this dtype and shape runs its warp-unit kernel
+    on the card: bf16, K <= MMA_FWD_MAX_K, a head width of 4, 8, 12 or 16
+    and the padded heads at most _MMA_FWD_MAX_NQ columns wide (D <= 64 at
+    the flagship's 8-column heads).  Every other shape runs the tiled
+    CUDA-core kernel."""
+    return (dtype == torch.bfloat16 and K <= MMA_FWD_MAX_K
+            and _mma_head_ok(D // n_heads) and _padded_heads(D, n_heads) <= _MMA_FWD_MAX_NQ)
+
+
 def _mma_qkv_ok(D: int, n_heads: int) -> bool:
     """fused_mha_qkv_bwd's tensor-core kernel also holds dWqkv, (D, 3D)
     with each head padded, in at most _MMA_WGRAD_UNITS 16 x 16 units."""
-    dh = D // n_heads
-    nq = -(-n_heads * (8 if dh <= 8 else 16) // 16) * 16
-    return _mma_head_ok(dh) and (-(-D // 16)) * (3 * nq // 16) <= _MMA_WGRAD_UNITS
+    nq = -(-_padded_heads(D, n_heads) // 16) * 16
+    return _mma_head_ok(D // n_heads) and (-(-D // 16)) * (3 * nq // 16) <= _MMA_WGRAD_UNITS
 
 
 def attention_scale(head_dim: int) -> float:
@@ -197,9 +225,13 @@ def _cuda_args(name, tensors):
 def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
                       seed: int = 0, blocks=None):
     """The forward alone (no autograd): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  ``blocks`` caps the kernel's
-    persistent grid (default: as many blocks as fit on the SMs); the
-    output does not depend on it."""
+    plain version on a CPU tensor.  On the card the warp-unit kernel where
+    ``fwd_unit_kernel`` says so (bf16, K <= 160, head widths 4, 8, 12, 16;
+    x and the output aligned for its 16- or 8-byte copies, or refused),
+    the tiled CUDA-core kernel at every other shape; the two give the same
+    bits.  ``blocks`` caps the kernel's persistent grid
+    (default: as many blocks as fit on the SMs); the output does not
+    depend on it."""
     _check(x, wqkv, bqkv, bias, n_heads, dropout_p)
     if x.device.type == "cpu":
         return fused_mha_qkv_reference(x, wqkv, bqkv, bias, n_heads, dropout_p, seed)
@@ -211,7 +243,8 @@ def fused_mha_qkv_fwd(x, wqkv, bqkv, bias, n_heads: int, dropout_p: float = 0.0,
     rc = lib.tossctr_fused_mha_qkv_fwd(
         *(t.data_ptr() for t in tensors), out.data_ptr(), B, K, D, n_heads,
         attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
-        int(blocks or 0), DTYPE_CODES[x.dtype], x.device.index, stream_of(x),
+        int(blocks or 0), int(fwd_unit_kernel(x.dtype, K, D, n_heads)), DTYPE_CODES[x.dtype],
+        x.device.index, stream_of(x),
     )
     check_launch(lib, rc, "fused_mha_qkv")
     fused_mha_qkv.launches += 1
@@ -354,7 +387,10 @@ def _check_mha(q, k, v, bias, n_heads, dropout_p):
 def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int = 0,
                   blocks=None):
     """The forward alone (no autograd): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor.  ``blocks`` caps the kernel's
+    plain version on a CPU tensor.  On the card the warp-unit kernel (the
+    tensor cores) where ``fwd_unit_kernel`` says so (q, k, v and the
+    output aligned for its 16- or 8-byte copies, or refused), the tiled
+    CUDA-core kernel at every other shape.  ``blocks`` caps the kernel's
     persistent grid (default: as many blocks as fit on the SMs); the
     output does not depend on it."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
@@ -368,7 +404,8 @@ def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int
     rc = lib.tossctr_fused_mha_fwd(
         *(t.data_ptr() for t in tensors), out.data_ptr(), B, K, D, n_heads,
         attention_scale(D // n_heads), *kernel_args(dropout_p, seed),
-        int(blocks or 0), DTYPE_CODES[q.dtype], q.device.index, stream_of(q),
+        int(blocks or 0), int(fwd_unit_kernel(q.dtype, K, D, n_heads)), DTYPE_CODES[q.dtype],
+        q.device.index, stream_of(q),
     )
     check_launch(lib, rc, "fused_mha")
     fused_mha.launches += 1
