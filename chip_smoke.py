@@ -21,7 +21,8 @@
    kernel's registers, static shared memory and spills (ptxas's report of
    the build, ``fused_mha_qkv``'s forward's included) and,
    where the toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in
-   its SASS (a bf16 tensor-core kernel without them fails).  Beside
+   its SASS (a bf16 tensor-core kernel without them fails; the block
+   tail pair's are on the tensor cores too).  Beside
    them: the four attention kernels at the larger-K configs' shapes (K =
    120 at B = 8192, K = 152 at B = 4096), with their PyTorch yardsticks
    at those shapes; and
@@ -47,8 +48,17 @@
    card with the kernels' plain versions: the selections, the loss, every
    dense gradient, the AdaGrad accumulator and the table's update agree
    within the bands of ``CHECK_BANDS`` (see ``train_reference_check`` for
-   the rows each comparison holds and the gaps reported beside).  The
-   serving and training phases run the QNN head's plain FM path.
+   the rows each comparison holds and the gaps reported beside).  In
+   bf16 the comparison with the plain versions runs both steps with every
+   ReLU pinned to the plain step's signs (the unpinned pair and its ReLU
+   sign flips reported beside), and its accumulator band is derived in
+   the run from a perturbation witness: the plain step with one encoder
+   kernel's bf16 outputs moved by one ulp on 0.05% of their elements.
+   Then the negative controls: the same comparison with three wrong plain
+   versions (the tail forward with the next seed's mask or with the kept
+   units unscaled, the qkv forward without the positional bias) must
+   each fail a band.  The serving and training phases run the QNN
+   head's plain FM path.
 6. Fold phase: the K-fold entry point at full width with the FM-cross
    kernels (``model.extra.use_pallas_fm``): ``train_main`` over a
    synthetic train cache of FOLD_ROWS rows, cut to one fold of five and
@@ -158,24 +168,39 @@ LAYER_ENCODER = ("fused_mha_qkv", "fused_mha_qkv_bwd", "fused_ffn", "fused_ffn_b
 # None: not asked): share of those rows whose every ReLU input has the
 # same sign on both sides in the step's forward.  vs_cpu, the card
 # against the CPU on the rows with a history, the same ordered selection
-# and (where asked) the same ReLU signs; vs_plain, the card's kernels against their plain versions on
-# the card, on every row with a history: loss, relative; grads, norm of
-# the difference over the norm for all dense gradients together;
-# grad_tensor, the same for the worst single tensor (the positional
-# biases among them); accum, delta: the same for the AdaGrad accumulator
-# and the rows' update over the ids whose accumulator is >= ACCUM_FLOOR of
-# the largest (the others carry a gradient below AdaGrad's eps).
+# and (where asked) the same ReLU signs; vs_plain, the card's kernels
+# against their plain versions on the card, on every row with a history
+# (in bf16 with every ReLU pinned: ``PinnedPlain``): loss, relative;
+# grads, norm of the difference over the norm for all dense gradients
+# together; grad_tensor, the same for the worst single tensor (the
+# positional biases among them); accum, delta: the same for the AdaGrad
+# accumulator and the rows' update over the ids whose accumulator is >=
+# ACCUM_FLOOR of the largest (the others carry a gradient below AdaGrad's
+# eps).  A band of None is derived in the run from the perturbation
+# witness (``PinnedPlain.witness``).
 ACCUM_FLOOR = 1e-6
 # the bf16 step's fp32 witness: the card's distance from the fp32 step may
 # be at most this many times the CPU's (both are bf16 rounding; a card
 # path that rounded more coarsely than the CPU's would exceed it)
 FP32_WITNESS_RATIO = 1.5
+# The bf16 vs_plain perturbation witness: the plain-versions step with one
+# RMS encoder kernel's bf16 outputs moved by one ulp (up or down) on a
+# seeded WITNESS_SHARE of their elements, about what a correct kernel that
+# sums in another order does (a tensor-core qkv forward moved 0.041%),
+# held against the plain-versions step, both with the ReLUs pinned.  A
+# derived band is the largest of the four kernels' distances, at most
+# WITNESS_CAP: the accumulator's (one forward rounding's cascade lands
+# above any hand-set band a kernel would pass) and the worst tensor's
+# (the witness of a forward lands above the 0.01 that was set by hand).
+WITNESS_SHARE = 5e-4
+WITNESS_SEED = 20261
+WITNESS_CAP = 0.02
 _HELD = ("loss", "grads", "grad_tensor", "accum", "delta")
 CHECK_BANDS = {
-    "bf16": dict(select=0.999, same_order=0.3, same_relu=None,
+    "bf16": dict(select=0.999, same_order=0.3, same_relu=None, pinned=True,
                  vs_cpu=dict(zip(_HELD, (1e-3, 3e-2, 8e-2, 5e-2, 6e-2))),
-                 vs_plain=dict(zip(_HELD, (5e-4, 6e-3, 1e-2, 3e-3, 2.5e-2)))),
-    "none": dict(select=0.999, same_order=0.999, same_relu=0.99,
+                 vs_plain=dict(zip(_HELD, (5e-4, 6e-3, None, None, 2.5e-2)))),
+    "none": dict(select=0.999, same_order=0.999, same_relu=0.99, pinned=False,
                  vs_cpu=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4))),
                  vs_plain=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4)))),
 }
@@ -215,7 +240,8 @@ def tensor_core_rows(results, flops, need_mma=True):
         r = results[name]
         log(f"[kernel] {name} bf16: {n / r['ms'] * 1e-9:.4f} TFLOP/s, "
             f"{r['bound_ms'] / r['ms']:.2%} of the bound ({r['ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call {r['library_ms']:.4f} ms)")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call "
+            + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms") + ")")
         r["build"] = tensor_core_report(name, need_mma)
 
 
@@ -366,7 +392,8 @@ def kernel_phase(cfg, dev):
         log(f"[kernel] fused_block_tail N={N} D={D} F={Fh} bf16 p={p}: "
             f"max_abs_err={errs[p]:.6g} (tolerance {tol:.6g}); {spread(got, want)}")
     del got, want
-    b_ms, b_by = bound_ms(nbytes(*targs) + N * D * 2, 2 * N * (D * D + 2 * D * Fh))
+    tail_flops = 2 * N * (D * D + 2 * D * Fh)
+    b_ms, b_by = bound_ms(nbytes(*targs) + N * D * 2, tail_flops)
     results["fused_block_tail"] = dict(
         name="fused_block_tail", route="cuda",
         source="tossctr_tpu_torch/csrc/fused_block_tail.cu",
@@ -394,8 +421,9 @@ def kernel_phase(cfg, dev):
         + f" (dx, do: 3 bf16 ulps; the rest: {WGRAD_BAND} of each one's largest magnitude); "
         + "; ".join(f"{n}: {spread(got[i], want[i])}" for i, n in enumerate(names)))
     grad_bytes = 4 * (D * D + 2 * D * Fh + Fh + 5 * D)
-    b_ms, b_by = bound_ms(nbytes(*targs, dy) + 2 * N * D * 2 + grad_bytes,
-                          2 * N * (D * D + 2 * D * Fh) + 2 * N * (4 * D * Fh + 2 * D * D))
+    # the forward recomputed, then the backward's products
+    tail_bwd_flops = tail_flops + 2 * N * (4 * D * Fh + 2 * D * D)
+    b_ms, b_by = bound_ms(nbytes(*targs, dy) + 2 * N * D * 2 + grad_bytes, tail_bwd_flops)
     results["fused_block_tail_bwd"] = dict(
         name="fused_block_tail_bwd", route="cuda",
         source="tossctr_tpu_torch/csrc/fused_block_tail_bwd.cu",
@@ -407,6 +435,8 @@ def kernel_phase(cfg, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     del targs, dy, got, want
+    tensor_core_rows(results, {"fused_block_tail": tail_flops,
+                               "fused_block_tail_bwd": tail_bwd_flops})
     results.update(separate_kernel_rows(cfg, dev, g))
     results.update(fm_kernel_rows(cfg, dev, g))
     large_k_rows(cfg, dev, g, results)
@@ -1874,11 +1904,33 @@ def dropout_check_phase(dev):
 
 
 @contextlib.contextmanager
-def plain_versions_on_card():
+def swapped(module, name, fn):
+    """``module.name`` replaced by ``fn`` inside."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+# each RMS encoder kernel's wrapper: (module, name), the functions the
+# autograd Functions call
+ENCODER_WRAPPERS = {
+    "fused_mha_qkv": ("tossctr_tpu_torch.ops.fused_attention", "fused_mha_qkv_fwd"),
+    "fused_mha_qkv_bwd": ("tossctr_tpu_torch.ops.fused_attention", "fused_mha_qkv_bwd"),
+    "fused_block_tail": ("tossctr_tpu_torch.ops.fused_ffn", "fused_block_tail_fwd"),
+    "fused_block_tail_bwd": ("tossctr_tpu_torch.ops.fused_ffn", "fused_block_tail_bwd"),
+}
+
+
+@contextlib.contextmanager
+def plain_versions_on_card(*over):
     """The encoder kernels' and the table update's wrappers swapped for
     their plain PyTorch versions, which then run on the card: a witness
     that splits the card's rounding between the kernels and the rest of
-    the step."""
+    the step.  ``over``: context managers entered after the swap (a
+    perturbed or a wrong plain version)."""
     # the modules, not the package's functions of the same name
     fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
     ff = importlib.import_module("tossctr_tpu_torch.ops.fused_ffn")
@@ -1893,14 +1945,74 @@ def plain_versions_on_card():
              (ff, "fused_ffn_fwd", ff.fused_ffn_reference),
              (ff, "fused_ffn_bwd", ff.fused_ffn_bwd_reference),
              (sw, "sweep_rows_add", sw.sweep_rows_add_reference)]
-    saved = [getattr(m, n) for m, n, _ in swaps]
-    try:
+    with contextlib.ExitStack() as stack:
         for m, n, plain in swaps:
-            setattr(m, n, plain)
+            stack.enter_context(swapped(m, n, plain))
+        for c in over:
+            stack.enter_context(c)
         yield
-    finally:
-        for (m, n, _), fn in zip(swaps, saved):
-            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def ulp_nudged(kernel, share=WITNESS_SHARE, seed=WITNESS_SEED):
+    """The RMS encoder kernel ``kernel``'s wrapper, as installed, returning
+    its bf16 outputs with a seeded ``share`` of their elements moved by
+    one bf16 ulp, up or down at random (a zero moves up); its fp32 outputs
+    as they are."""
+    import torch
+
+    mod_name, attr = ENCODER_WRAPPERS[kernel]
+    mod = importlib.import_module(mod_name)
+    fn, gens = getattr(mod, attr), {}
+
+    def nudge(t):
+        if not (torch.is_tensor(t) and t.dtype == torch.bfloat16):
+            return t
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(device=t.device).manual_seed(seed)
+        pick = torch.rand(t.shape, generator=gens[t.device], device=t.device) < share
+        up = torch.rand(t.shape, generator=gens[t.device], device=t.device) < 0.5
+        bits = t.contiguous().view(torch.int16)
+        mag = bits & 0x7FFF  # the magnitude's bits: +1 moves away from 0, -1 toward it
+        step = torch.where((up & (mag < 0x7F7F)) | (mag == 0), 1, -1).to(torch.int16)
+        return torch.where(pick, bits + step, bits).view(torch.bfloat16)
+
+    def nudged(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        return tuple(nudge(t) for t in out) if isinstance(out, tuple) else nudge(out)
+
+    with swapped(mod, attr, nudged):
+        yield
+
+
+def wrong_plain_versions():
+    """The negative controls' wrong forwards, each (label, module, wrapper
+    name, function) to swap in over the plain versions: the tail forward
+    with the dropout mask of the next seed, the tail forward with its kept
+    hidden units not scaled by 1/(1-p), and the qkv forward without the
+    positional bias (the pad columns' -1e9 kept)."""
+    fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+    ff = importlib.import_module("tossctr_tpu_torch.ops.fused_ffn")
+    keep = ff.ffn_keep
+
+    def next_seed(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, dropout_p=0.0, seed=0):
+        return ff.fused_block_tail_reference(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2,
+                                             dropout_p, seed + 1)
+
+    def unscaled(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, dropout_p=0.0, seed=0):
+        with swapped(ff, "ffn_keep", lambda *a, **k: (keep(*a, **k) > 0).float()):
+            return ff.fused_block_tail_reference(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2,
+                                                 dropout_p, seed)
+
+    def no_positional_bias(x, wqkv, bqkv, bias, n_heads, dropout_p=0.0, seed=0, **_):
+        return fa.fused_mha_qkv_reference(x, wqkv, bqkv, bias.masked_fill(bias > -1e8, 0),
+                                          n_heads, dropout_p, seed)
+
+    return (("tail forward with the mask of seed + 1", ff, "fused_block_tail_fwd", next_seed),
+            ("tail forward with keep not scaled by 1/(1-p)", ff, "fused_block_tail_fwd",
+             unscaled),
+            ("qkv forward without the positional bias", fa, "fused_mha_qkv_fwd",
+             no_positional_bias))
 
 
 def relu_signs(model, batch, device):
@@ -1925,6 +2037,98 @@ def relu_signs(model, batch, device):
     finally:
         torch.relu = relu
     return signs
+
+
+@contextlib.contextmanager
+def pinned_relus(signs):
+    """``torch.relu`` replaced by ``torch.where(mask, x, 0)`` on the masks
+    ``signs`` (one a call, in call order, from ``relu_signs``): every ReLU
+    keeps the inputs another forward kept, whatever their sign here.
+    Where the signs agree it is ReLU, forward and gradient."""
+    import torch
+
+    relu, calls = torch.relu, iter(signs)
+
+    def pinned(x):
+        m = next(calls, None)
+        if m is None or tuple(m.shape) != tuple(x.shape):
+            raise AssertionError(f"ReLU call of {tuple(x.shape)} against a mask "
+                                 f"{None if m is None else tuple(m.shape)}")
+        return torch.where(m.to(x.device), x, 0.0)
+
+    torch.relu = pinned
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+class PinnedPlain:
+    """The bf16 ``vs_plain`` comparison with every ReLU pinned, on one model,
+    batch (a dict of numpy arrays) and id set.  It records the ReLU signs
+    of the step's forward with the kernels' plain versions, then that
+    step with those signs pinned on both sides (``pinned_relus``): every
+    step here is held against that one.  A ReLU input within rounding of 0
+    sends a row's gradient down another path wholesale, so unpinned the
+    comparison would count the sign flips that any correct kernel summing
+    in another order sets off; pinned, it gives the ReLU's gradient
+    wherever the signs agree and holds the rest of the step as it is.
+    ``ctx`` below: a callable that returns a context manager (the step's
+    kernels: ``contextlib.nullcontext`` for the kernels as built,
+    ``plain_versions_on_card`` with perturbed or wrong versions over it)."""
+
+    def __init__(self, cfg, model, init, batch, device, ids):
+        self.args = (cfg, model, init, batch, device, ids)
+        self.signs = self.signs_under(plain_versions_on_card)
+        self.plain = self.record(plain_versions_on_card)
+
+    def signs_under(self, ctx):
+        """``relu_signs`` of the forward under ``ctx``."""
+        _, model, init, batch, device, _ = self.args
+        model.load_state_dict(init)
+        with ctx():
+            return relu_signs(model, batch, device)
+
+    def record(self, ctx):
+        """The step under ``ctx`` with the ReLUs pinned (``_step_record``)."""
+
+        @contextlib.contextmanager
+        def pinned():
+            with ctx(), pinned_relus(self.signs):
+                yield
+
+        return _step_record(*self.args, variant=pinned)
+
+    def compare(self, ctx):
+        """The step under ``ctx`` against the plain one, both pinned."""
+        return _compare_steps(self.record(ctx), self.plain)
+
+    def flips(self, ctx):
+        """The ReLU inputs whose sign in the unpinned forward under ``ctx``
+        is not the plain forward's."""
+        return sum(int((a != b).sum()) for a, b in zip(self.signs_under(ctx), self.signs))
+
+    def witness(self, bands, share=WITNESS_SHARE):
+        """-> (``bands`` with each None derived: the largest distance, at
+        most WITNESS_CAP, of the plain step with one RMS encoder kernel's
+        bf16 outputs nudged by an ulp on ``share`` of them (``ulp_nudged``)
+        from the plain step; {kernel: its distances})."""
+        found = {k: self.compare(lambda k=k: plain_versions_on_card(ulp_nudged(k, share)))
+                 for k in RMS_ENCODER}
+        out = {m: min(WITNESS_CAP, max(g[m] for g in found.values())) if b is None else b
+               for m, b in bands.items()}
+        return out, found
+
+    def negative_controls(self, bands):
+        """Each wrong plain version (``wrong_plain_versions``) in place of its
+        plain version, against the plain step: -> [(label, distances, the
+        held metrics out of ``bands``)]."""
+        out = []
+        for label, mod, attr, wrong in wrong_plain_versions():
+            g = self.compare(lambda m=mod, a=attr, w=wrong: plain_versions_on_card(
+                swapped(m, a, w)))
+            out.append((label, g, [m for m, b in bands.items() if not g[m] <= b]))
+        return out
 
 
 def same_relu_rows(sides, batch, rows):
@@ -1958,7 +2162,8 @@ def _step_record(cfg, model, init, batch, device, ids, variant=None):
     AdaGrad accumulator at ``ids`` before and after.  ``variant``:
     "oneDNN off" runs the CPU's matrix products through PyTorch's own
     kernels instead of oneDNN's; "plain versions" runs the card's step
-    with the plain versions of the kernels."""
+    with the plain versions of the kernels; a callable returns the
+    context manager the step runs in."""
     import torch
 
     from tossctr_tpu_torch.train.trainer import dense_params
@@ -1968,10 +2173,10 @@ def _step_record(cfg, model, init, batch, device, ids, variant=None):
     table = model.dare.emb_tables
     on = ids.to(device)
     before = table[on].double().cpu()
-    ctx = {None: contextlib.nullcontext(),
-           "oneDNN off": torch.backends.mkldnn.flags(enabled=False),
-           "plain versions": plain_versions_on_card()}[variant]
-    with ctx:
+    ctx = variant if callable(variant) else {
+        None: contextlib.nullcontext, "plain versions": plain_versions_on_card,
+        "oneDNN off": lambda: torch.backends.mkldnn.flags(enabled=False)}[variant]
+    with ctx():
         state, loss = step(state, to_device(batch, device))
     opt = state.table_opt.get("emb_tables")
     rec = dict(loss=float(loss), before=before, rows=table[on].double().cpu(),
@@ -2054,6 +2259,40 @@ def _compare_steps(c, r):
     return got
 
 
+def log_compare(head, g, ra, rb):
+    """One step comparison (``_compare_steps`` of records ``ra``, ``rb``) on
+    one line."""
+    log(f"{head}: loss {ra['loss']:.6f} vs {rb['loss']:.6f} "
+        f"(rel {g['loss']:.3g}); dense gradients |diff|/|grad| {g['grads']:.3g}, worst "
+        "tensors " + ", ".join(f"{n} {e:.3g}" for n, e in g["worst"])
+        + "; positional biases "
+        + ", ".join(f"{n.split('.')[1]} {e:.3g}" for n, e in sorted(g["pbias"].items()))
+        + f"; over the {g['n_big']} of {g['n_ids']} ids whose accumulator is >= "
+        f"{ACCUM_FLOOR:g} of the largest: accumulator {g['accum']:.3g} (att, rep halves "
+        f"{g['accum_halves'][0]:.3g}, {g['accum_halves'][1]:.3g}; all {g['n_ids']} ids "
+        f"{g['accum_all']:.3g}), row update {g['delta']:.3g} (largest accumulator "
+        f"{g['acc_max']:.3g}, largest |update| {g['delta_max']:.3g})")
+
+
+def negative_controls(pin, bands, tag="controls"):
+    """The pinned bf16 ``vs_plain`` comparison (``pin``, a ``PinnedPlain``,
+    and its held ``bands``) with each wrong plain version of
+    ``wrong_plain_versions`` in place of its plain version: each must land
+    out of at least one held band, or the check could not fail a wrong
+    kernel.  -> {label: the held metrics out of band}."""
+    out, passed = {}, []
+    for label, g, off in pin.negative_controls(bands):
+        log(f"[{tag}] {label}, every ReLU pinned, against the plain step: "
+            + ", ".join(f"{m} {g[m]:.4g} (band {b:.4g})" for m, b in bands.items())
+            + f"; out of band: {', '.join(off) or 'none'}")
+        out[label] = off
+        if not off:
+            passed.append(label)
+    if passed:
+        raise AssertionError(f"the bf16 step check passes wrong plain versions: {passed}")
+    return out
+
+
 def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     """One step from one state on a CHECK_ROWS-row batch, in the compute
     dtype of ``amp``, kernel dropouts on (the counter-hash masks are the
@@ -2083,7 +2322,14 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     each side's step against the card's fp32 step, the card held to no
     more than FP32_WITNESS_RATIO times the CPU's distance from it; and the
     card's step with cuBLAS's reduced-precision bf16 reductions off.
-    ``held_only``: the two held comparisons alone."""
+
+    In bf16 the held ``vs_plain`` runs both steps with every ReLU pinned
+    to the plain step's signs (``PinnedPlain``; the unpinned pair and its
+    ReLU sign flips are reported beside, not held), and the bands of None
+    come from the perturbation witness measured in the same run.
+    ``held_only``: the two held comparisons alone.  -> the numbers, by
+    name; in bf16 also "pinned": (the ``PinnedPlain``, its bands), for
+    ``negative_controls``."""
     import torch
 
     from tossctr_tpu_torch.config import Config
@@ -2125,19 +2371,26 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     sides = {"card": (card_model, dev, None), "cpu": (cpu_model, cpu, None),
              "cpu, oneDNN off": (cpu_model, cpu, "oneDNN off"),
              "card, plain versions": (card_model, dev, "plain versions")}
-    # (label, rows, side, against): the bands name the two held pairs
+    # (label, rows, side, against): the bands name the two held pairs; the
+    # pinned bf16 vs_plain is held instead of the unpinned one
+    pinned = bands["pinned"]
+    plain_label = "vs_plain unpinned (reported, not held)" if pinned else "vs_plain"
     runs = [("whole batch", torch.ones_like(held), "card", "cpu"),
             ("non-empty history", nonempty, "card", "cpu"),
             ("vs_cpu", held, "card", "cpu"),
-            ("vs_plain", nonempty, "card", "card, plain versions"),
+            (plain_label, nonempty, "card", "card, plain versions"),
             ("witness", held, "cpu, oneDNN off", "cpu")]
     if held_only:
         runs = [r for r in runs if r[0] in ("vs_cpu", "vs_plain")]
+
+    def ids_of(rows):
+        ids = torch.unique(sel["card"][rows])
+        return ids[torch.isin(ids, sel["cpu"][rows]) & (ids != cfg.sequence.pad_id)]
+
     recs, found = {}, {}
     for label, rows, a, b in runs:
         t0 = time.time()
-        ids = torch.unique(sel["card"][rows])
-        ids = ids[torch.isin(ids, sel["cpu"][rows]) & (ids != cfg.sequence.pad_id)]
+        ids = ids_of(rows)
         for side in (a, b):
             key = (side, tuple(rows.tolist()))
             if key not in recs:
@@ -2145,24 +2398,38 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
                 recs[key] = _step_record(cfg, m, init, rows_of(rows), x, ids, variant)
         ra, rb = (recs[(side, tuple(rows.tolist()))] for side in (a, b))
         found[label] = g = _compare_steps(ra, rb)
-        log(f"[{tag}] amp={amp} {label}: {a} vs {b} ({int(rows.sum())} rows, "
-            f"{time.time() - t0:.1f} s): loss {ra['loss']:.6f} vs {rb['loss']:.6f} "
-            f"(rel {g['loss']:.3g}); dense gradients |diff|/|grad| {g['grads']:.3g}, worst "
-            "tensors " + ", ".join(f"{n} {e:.3g}" for n, e in g["worst"])
-            + "; positional biases "
-            + ", ".join(f"{n.split('.')[1]} {e:.3g}" for n, e in sorted(g["pbias"].items()))
-            + f"; over the {g['n_big']} of {g['n_ids']} ids whose accumulator is >= "
-            f"{ACCUM_FLOOR:g} of the largest: accumulator {g['accum']:.3g} (att, rep halves "
-            f"{g['accum_halves'][0]:.3g}, {g['accum_halves'][1]:.3g}; all {g['n_ids']} ids "
-            f"{g['accum_all']:.3g}), row update {g['delta']:.3g} (largest accumulator "
-            f"{g['acc_max']:.3g}, largest |update| {g['delta_max']:.3g})")
+        log_compare(f"[{tag}] amp={amp} {label}: {a} vs {b} ({int(rows.sum())} rows, "
+                    f"{time.time() - t0:.1f} s)", g, ra, rb)
+    held_bands = dict(bands, vs_plain=dict(bands["vs_plain"]))
+    if pinned:
+        t0 = time.time()
+        pin = PinnedPlain(cfg, card_model, init, rows_of(nonempty), dev, ids_of(nonempty))
+        held_bands["vs_plain"], wit = pin.witness(bands["vs_plain"])
+        for k, w in wit.items():
+            log(f"[{tag}] amp={amp} vs_plain witness: the plain step with {k}'s bf16 outputs "
+                f"{WITNESS_SHARE:.3%} moved by an ulp, against the plain step, both pinned: "
+                + ", ".join(f"{m} {w[m]:.4g} (band {b:.4g})"
+                            for m, b in held_bands["vs_plain"].items()))
+        log(f"[{tag}] amp={amp} vs_plain derived bands (the largest witness, at most "
+            f"{WITNESS_CAP}): " + ", ".join(
+                f"{m} {held_bands['vs_plain'][m]:.4g}" for m, b in bands["vs_plain"].items()
+                if b is None))
+        flips = pin.flips(contextlib.nullcontext)
+        rec = pin.record(contextlib.nullcontext)
+        found["vs_plain"] = g = _compare_steps(rec, pin.plain)
+        log_compare(f"[{tag}] amp={amp} vs_plain: card vs card, plain versions, every ReLU "
+                    f"pinned to the plain step's signs ({int(nonempty.sum())} rows, "
+                    f"{time.time() - t0:.1f} s with the witness; {flips} ReLU inputs take "
+                    f"another sign unpinned)", g, rec, pin.plain)
+        got["pinned"] = (pin, held_bands["vs_plain"])
+        got["relu flips"] = flips
     if amp == "bf16" and not held_only:
         got.update(bf16_witnesses(d, cfg, cache.dims, batch, init, (card_model, cpu_model), sel,
                                   held, recs, dev, tag))
     failed = [k for k in ("select", "same_order", "same_relu")
               if bands[k] is not None and not got[k] >= bands[k]]
     for pair in ("vs_cpu", "vs_plain"):
-        for k, band in bands[pair].items():
+        for k, band in held_bands[pair].items():
             got[f"{pair} {k}"] = found[pair][k]
             if not found[pair][k] <= band:
                 failed.append(f"{pair} {k}")
@@ -2171,8 +2438,8 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
         f"{got['same_order']:.4%} (band {bands['same_order']})"
         + (f", of them with the same ReLU signs {got['same_relu']:.4%} (band "
            f"{bands['same_relu']})" if bands["same_relu"] is not None else "") + "; held: "
-        + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b})"
-                                           for k, b in bands[pair].items())
+        + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b:.4g})"
+                                           for k, b in held_bands[pair].items())
                     for pair in ("vs_cpu", "vs_plain")))
     if amp == "bf16" and not held_only and not got["fp32 ratio"] <= FP32_WITNESS_RATIO:
         failed.append("fp32 ratio")
@@ -2330,7 +2597,9 @@ def main() -> int:
         log(f"[train] synthetic train cache: {len(train_cache)} rows, {time.time() - t0:.1f} s")
         train_launches = training_phase(base_cfg, train_cache, dev)
         for amp in CHECK_BANDS:
-            train_reference_check(flagship_config_dict(), train_cache, dev, amp)
+            checked = train_reference_check(flagship_config_dict(), train_cache, dev, amp)
+            if "pinned" in checked:
+                negative_controls(*checked["pinned"])
         t0 = time.time()
         layer_launches, layer_served = layernorm_phase(tmp, man, train_cache, dev)
         layer_wall = time.time() - t0

@@ -29,7 +29,11 @@ rows (not multiples of its row tiles) and F = 40 and 100 (not
 multiples of its 64-column hidden chunk), at D = 32, F = 64, at N =
 132 * 64 * 3 + 37 (several persistent walks with a ragged end) and at F
 = 1024 (the bf16 forward's weights in two panels), its backward also at
-grids of 1 and 7 blocks; the FM-cross pair runs at the
+grids of 1 and 7 blocks; the ``fused_block_tail`` pair (bf16 on the
+tensor cores) at D = 16, 24, 48 and 64, F = 64, 200, 384 and 1024 (the
+weights in panels), rows that fill no whole tile, several persistent
+walks, its backward at grids of 1 and 7 blocks (dx and do bit-equal to
+the default grid's) and through autograd; the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
 of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
 tables with duplicates, out-of-range ids, uniform and zipf ids and one
@@ -201,6 +205,43 @@ def test_cuda_kernels_match_plain_versions():
         for i, name in enumerate(names):
             close(name, dtype, got[i], want[i], activation=i < 2)
             assert torch.equal(got[i], again[i]), f"{name} changed between two calls"
+
+    def tail_grids(dtype, N, D, F, p):
+        """fused_block_tail_bwd at grids of 1, 7 and the default blocks: dx
+        and do bit-equal across the grids, every output bit-equal between
+        two calls on one grid, the weight gradients within the fp32 band
+        across grids (their per-block partials regroup)."""
+        ts, dy = tail_args(dtype, N, D, F)
+        names = ("dx", "do", "dwout", "dbout", "dwn1", "dw1", "db1", "dw2", "db2", "dwn2")
+        runs = {}
+        for blocks in (None, 1, 7):
+            first = fused_block_tail_bwd(*ts, dy, p, SEED, blocks=blocks)
+            again = fused_block_tail_bwd(*ts, dy, p, SEED, blocks=blocks)
+            for i, name in enumerate(names):
+                assert torch.equal(first[i], again[i]), f"{name} changed between two calls"
+            runs[blocks] = first
+        torch.cuda.synchronize()
+        for blocks in (1, 7):
+            for i, name in enumerate(names):
+                if i < 2:
+                    assert torch.equal(runs[blocks][i], runs[None][i]), \
+                        f"{name} moved with the grid ({blocks})"
+                else:
+                    close(f"{name} at {blocks} blocks", "f32", runs[blocks][i], runs[None][i])
+
+    def tail_autograd(dtype, N, D, F, p):
+        """fused_block_tail's backward is the kernel, each gradient in its
+        input's dtype."""
+        ts, dy = tail_args(dtype, N, D, F)
+        leaves = [a.detach().requires_grad_() for a in ts]
+        before = fused_block_tail_bwd.launches
+        fused_block_tail(*leaves, dropout_p=p, seed=SEED).backward(dy)
+        torch.cuda.synchronize()
+        assert fused_block_tail_bwd.launches == before + 1
+        want = fused_block_tail_bwd_reference(*ts, dy, p, SEED)
+        for i, t in enumerate(leaves):
+            assert t.grad.dtype == t.dtype, (i, t.grad.dtype)
+            close(f"grad {i}", dtype, t.grad, want[i].to(t.dtype), activation=i < 2)
 
     def mha_args(dtype, B, K, D, H):
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
@@ -651,6 +692,24 @@ def test_cuda_kernels_match_plain_versions():
         for shape in ((67, 200, 64, 6, 16, 192), (5, 13, 10, 3, 5, 7), (1, 8, 16, 2, 4, 8)):
             checks.run(f"fm cross {dtype} {shape}", fm_cross, dtype, *shape)
         checks.run(f"fm cross autograd {dtype}", fm_cross_autograd, dtype, 9, 16, 16, 2, 4, 8)
+    # the block tail pair (bf16 on the tensor cores, fp32 on the CUDA
+    # cores) at every padded width (D = 16, 24 -> 32, 48, 64), hidden
+    # widths that are and are not multiples of the 64-column chunk, rows
+    # that are not multiples of the forward's 16-row or the backward's
+    # 128-row tiles (and several persistent walks: 132 SMs x 128 rows x 2
+    # + 37), F = 1024 (the weights in panels), across grids and through
+    # autograd
+    for dtype in ("f32", "bf16"):
+        for p in (0.0, P_DROP):
+            for N, D, F in ((1000, 16, 64), (37, 24, 200), (130, 48, 384), (777, 64, 200),
+                            (132 * 128 * 2 + 37, 64, 384), (300, 64, 1024)):
+                tag = f"{dtype} p={p} N={N} D={D} F={F}"
+                checks.run(f"block tail {tag}", block_tail, dtype, N, D, F, p)
+                checks.run(f"block tail bwd {tag}", block_tail_bwd, dtype, N, D, F, p)
+        for N, D, F in ((132 * 128 * 2 + 37, 64, 384), (200, 24, 64), (37, 16, 200)):
+            checks.run(f"block tail grids {dtype} N={N} D={D} F={F}", tail_grids, dtype, N, D, F,
+                       P_DROP)
+        checks.run(f"block tail autograd {dtype}", tail_autograd, dtype, 130, 64, 384, P_DROP)
     # the bf16 backwards' tensor-core kernels (K <= 128: queries and keys
     # padded to 64 or 128) at every head width they take (dh 4, 8, 12, 16:
     # 8-byte pieces, heads padded to 8 and 16 columns), a small odd shape,

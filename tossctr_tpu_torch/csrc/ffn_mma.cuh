@@ -1,8 +1,10 @@
 // Tensor-core stages of the bf16 FFN kernels (fused_ffn.cu,
-// fused_ffn_bwd.cu): one 64-column hidden chunk of the forward for a
-// warp's 16 rows, the backward's hidden recompute with dh and dx for a
-// warp's 16 rows, and the backward's weight-gradient products, which
-// contract over the rows of a shared tile.
+// fused_ffn_bwd.cu) and of the fused block tail (fused_block_tail.cu,
+// fused_block_tail_bwd.cu): one 64-column hidden chunk of the forward for
+// a warp's 16 rows, the backward's hidden recompute with dh and dx for a
+// warp's 16 rows, the backward's weight-gradient products, which
+// contract over the rows of a shared tile, and the tail's out-projection,
+// residuals and RMSNorm statistics on a warp's rows in C fragments.
 //
 // Every product is mma.sync.m16n8k16 with bf16 operands and fp32
 // accumulators, fed by ldmatrix from shared memory.  bf16 x bf16 products
@@ -97,6 +99,8 @@ __device__ __forceinline__ void fwd_chunk(const uint32_t (&xa)[DP / 16][4], cons
 //   h = x @ W1c + b1c, g = round_bf16(gelu_tanh(h) * keep)
 //   dh = (dy @ W2c^T) * keep * gelu'(h) (fp32); db1p += dh
 //   dx += round_bf16(dh) @ W1c^T
+// dx is an accumulator the caller starts (fused_ffn: zeros; the block
+// tail: its fp32 dr2, which so enters the sum before the one rounding)
 // xs, dys: the warp's 16 rows of x and dy ([16][lda]); w1c, w2c, b1c, f0,
 // row0 as in fwd_chunk.  g and round_bf16(dh) go to gs and dhs (the warp's
 // 16 rows, [16][ldg]) for the weight-gradient products.  db1p[k][e]: this
@@ -229,6 +233,140 @@ __device__ __forceinline__ void add_block(float* p, int ld, int r0, int c0, int 
                   make_float2(acc[j][2 * hr], acc[j][2 * hr + 1]));
     }
   }
+}
+
+// ---- the fused block tail: a warp's 16 rows in C fragments ----
+// A lane holds, of the rows' (16, DP) values, rows g and g + 8 at columns
+// 8j + 2t and 8j + 2t + 1 of each n8 tile j (g = lane / 4, t = lane % 4):
+// [j][0..1] row g, [j][2..3] row g + 8.  A row's columns lie in one quad.
+
+// the sum over a quad's four lanes: a row's sum in the C layout
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the sum over the eight quads (the lanes of one column pair)
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// 1 / sqrt(mean(r^2) + 1e-6) from a row's sum of squares, in the fp32
+// kernels' operations
+__device__ __forceinline__ float rms_inv(float ss, int D) {
+  return __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)D), 1e-6f)));
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// two bf16 of a shared row-major tile at (row, col), col even
+__device__ __forceinline__ float2 pair_at(const bf16* s, int ld, int row, int col) {
+  return unpack_bf16(*reinterpret_cast<const uint32_t*>(s + row * ld + col));
+}
+
+// acc += a @ B for the warp's 16 rows: a the A fragments of a (16, DP)
+// tile, b a [k][n] shared tile (DP x DP, row stride ldb), as W is stored
+// for x @ W
+template <int DP>
+__device__ __forceinline__ void rows_nn(const uint32_t (&a)[DP / 16][4], const bf16* b, int ldb,
+                                        float (&acc)[DP / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t f[4];
+      ldsm_x4_t(f, tile_p1(b, ldb, kk * 16, np * 16, lane));
+      mma(acc[2 * np], a[kk], f[0], f[1]);
+      mma(acc[2 * np + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// acc += a @ B^T, b an [n][k] shared tile (DP x DP): for W stored as for
+// x @ W, the product with W^T
+template <int DP>
+__device__ __forceinline__ void rows_nt(const uint32_t (&a)[DP / 16][4], const bf16* b, int ldb,
+                                        float (&acc)[DP / 8][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+    for (int np = 0; np < DP / 16; ++np) {
+      uint32_t f[4];
+      ldsm_x4(f, tile_p2(b, ldb, np * 16, kk * 16, lane));
+      mma(acc[2 * np], a[kk], f[0], f[1]);
+      mma(acc[2 * np + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// the tail's first half from acc = o @ Wout (C fragments):
+//   r1 = round_bf16(x + round_bf16(acc + bout)), inv1 of each row,
+//   y1 = round_bf16(wn1 * (r1 * inv1)) as the A fragments of the rows
+// xs: the warp's 16 rows of x ([16][lda] bf16); bout, wn1: DP fp32, zero
+// past D.  r1: bf16 pairs, [j][0] row g, [j][1] row g + 8.
+template <int DP>
+__device__ __forceinline__ void tail_norm1(const float (&acc)[DP / 8][4], const bf16* xs, int lda,
+                                           const float* bout, const float* wn1, int D,
+                                           uint32_t (&r1)[DP / 8][2], float (&inv1)[2],
+                                           uint32_t (&ya)[DP / 16][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float ss[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float2 xv = pair_at(xs, lda, g + 8 * hr, c);
+      const float v0 = round_t<bf16>(
+          __fadd_rn(xv.x, round_t<bf16>(__fadd_rn(acc[j][2 * hr], bout[c]))));
+      const float v1 = round_t<bf16>(
+          __fadd_rn(xv.y, round_t<bf16>(__fadd_rn(acc[j][2 * hr + 1], bout[c + 1]))));
+      r1[j][hr] = pack_bf16(v0, v1);
+      ss[hr] = fmaf(v1, v1, fmaf(v0, v0, ss[hr]));
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) inv1[hr] = rms_inv(quad_sum(ss[hr]), D);
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float2 v = unpack_bf16(r1[j][hr]);
+      ya[j >> 1][(j & 1) * 2 + hr] = pack_bf16(__fmul_rn(wn1[c], __fmul_rn(v.x, inv1[hr])),
+                                               __fmul_rn(wn1[c + 1], __fmul_rn(v.y, inv1[hr])));
+    }
+  }
+}
+
+// r2 = round_bf16(y1 + round_bf16(ff + b2)) in place of ff, and inv2 of
+// each row; ya: y1 as A fragments (tail_norm1), b2: DP fp32, zero past D
+template <int DP>
+__device__ __forceinline__ void tail_residual2(float (&ff)[DP / 8][4],
+                                               const uint32_t (&ya)[DP / 16][4], const float* b2,
+                                               int D, float (&inv2)[2]) {
+  const int t = threadIdx.x & 3;
+  float ss[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float2 y = unpack_bf16(ya[j >> 1][(j & 1) * 2 + hr]);
+      const float v0 = round_t<bf16>(__fadd_rn(y.x, round_t<bf16>(__fadd_rn(ff[j][2 * hr], b2[c]))));
+      const float v1 =
+          round_t<bf16>(__fadd_rn(y.y, round_t<bf16>(__fadd_rn(ff[j][2 * hr + 1], b2[c + 1]))));
+      ff[j][2 * hr] = v0;
+      ff[j][2 * hr + 1] = v1;
+      ss[hr] = fmaf(v1, v1, fmaf(v0, v0, ss[hr]));
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) inv2[hr] = rms_inv(quad_sum(ss[hr]), D);
 }
 
 }  // namespace ffn_mma

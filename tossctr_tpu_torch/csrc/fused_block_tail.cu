@@ -18,20 +18,42 @@
 // and is not computed.
 //
 // What bounds it on the card: at the flagship shapes (N = 8192*64 rows,
-// D=64, F=384) one call reads x and o (134 MB) and writes y (67 MB),
+// D=64, F=384, bf16) one call reads x and o (134 MB) and writes y (67 MB),
 // ~60 us at 3.35 TB/s, and does 56 GFLOP, ~57 us on the bf16 tensor
-// cores: memory and compute floors are about equal.
+// cores: memory and compute floors are about equal.  Neither is the floor
+// in practice: as in fused_ffn's forward (0.42 ms at these shapes), each
+// of the 201M hidden elements takes a tanhf and, with dropout, the
+// counter hash on the CUDA cores.
 //
-// Design: a block owns a tile of 64 rows.  The (64, F) hidden block never
-// exists whole: F is walked in chunks of 64 columns, each chunk's W1 and
-// W2 slices are staged in shared memory, the chunk's GELU output is
-// rounded into shared memory and immediately multiplied into the (64, D)
-// FFN accumulator that each thread keeps in registers.  Residuals and
-// both norms stay in shared memory, so device memory sees x and o once
-// and y once; the 104 KB of bf16 weights are re-read from L2 per tile.
-// Products run on the CUDA cores in fp32 with 4x4 register tiles; the
-// tensor cores are the next step for speed.
+// Design, bf16 (tail_fwd_mma): tensor cores (ffn_mma.cuh).  Persistent
+// blocks, one an SM, of 16 warps; each warp walks 16-row tiles on its own
+// and keeps its rows in registers from start to end: no activation makes
+// a round trip through shared memory.  Wout, W1 and W2 are loaded into
+// shared memory once per block (114 KB of bf16 at the flagship, rows
+// padded against bank conflicts), instead of re-read from L2 every tile;
+// where W1 and W2 do not fit beside the warps' buffers (F above 512 at D
+// = 64) the block loads them in panels of 64-column chunks, all warps in
+// step.  A warp's tile: o and x copied with cp.async (zeros past N); a =
+// o @ Wout on mma.sync; r1 and RMSNorm 1 in the C fragments, each row's
+// sum of squares over its quad's lanes; y1 packed into A fragments; for
+// each 64-column hidden chunk, y1 @ W1c on mma.sync, bias, GELU, dropout
+// and the bf16 rounding in place, packed into the A fragments of the
+// product with W2c (ffn_mma.cuh fwd_chunk), the FFN output accumulating
+// in registers; then b2, r2, RMSNorm 2 and y, written from the C
+// fragments.  The warp copies its next tile's o and x as soon as it has
+// read the current ones, so the copy overlaps the FFN.  D is padded to a
+// multiple of 16 and F to one of 64 with zeros.  Serving (dropout off)
+// and training (on) run the same kernel.
+//
+// fp32 (block_tail_fwd_kernel): exact fp32 on the CUDA cores.  A block
+// owns a tile of 64 rows.  The (64, F) hidden block never exists whole:
+// F is walked in chunks of 64 columns, each chunk's W1 and W2 slices are
+// staged in shared memory, the chunk's GELU output is rounded into
+// shared memory and immediately multiplied into the (64, D) FFN
+// accumulator that each thread keeps in registers.  Residuals and both
+// norms stay in shared memory; 4x4 register tiles.
 #include "ffn_core.cuh"
+#include "ffn_mma.cuh"
 
 namespace {
 
@@ -203,10 +225,191 @@ int launch(const void* x, const void* o, const void* wout, const void* bout, con
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16: the tensor-core kernel ----
+
+namespace tc {
+
+using tossctr::ffn_mma::kChunk;
+using tossctr::ffn_mma::kWarpRows;
+using tossctr::ptx::bf16;
+using tossctr::ptx::round_up;
+using tossctr::ptx::row_stride;
+
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+
+struct Layout {  // offsets in bytes; panel: hidden columns of W1, W2 held at once
+  int lda, ld1, ld2;
+  int vec, b1, wout, w1, w2, x, total;
+  __host__ __device__ Layout(int DP, int F, int panel) {
+    lda = row_stride(DP);
+    ld1 = row_stride(panel);
+    ld2 = row_stride(DP);
+    vec = 0;                             // bout, wn1, b2, wn2: DP fp32 each
+    b1 = vec + 4 * DP * 4;
+    wout = b1 + round_up(F, kChunk) * 4;  // Wout (DP, DP)
+    w1 = wout + DP * lda * 2;            // W1's panel columns (DP, panel)
+    w2 = w1 + DP * ld1 * 2;              // W2's panel rows (panel, DP)
+    x = w2 + panel * ld2 * 2;            // each warp's (16, DP) o and x tiles
+    total = x + kWarps * 2 * kWarpRows * lda * 2;
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+tail_fwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ o,
+             const bf16* __restrict__ wout, const float* __restrict__ bout,
+             const float* __restrict__ wn1, const bf16* __restrict__ w1,
+             const float* __restrict__ b1, const bf16* __restrict__ w2,
+             const float* __restrict__ b2, const float* __restrict__ wn2, bf16* __restrict__ y,
+             int N, int D, int F, int panel, Dropout drop) {
+  using namespace tossctr::ffn_mma;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(DP, F, panel);
+  float* bout_s = reinterpret_cast<float*>(smem + L.vec);
+  float* wn1_s = bout_s + DP;
+  float* b2_s = wn1_s + DP;
+  float* wn2_s = b2_s + DP;
+  float* b1s = reinterpret_cast<float*>(smem + L.b1);
+  bf16* wout_s = reinterpret_cast<bf16*>(smem + L.wout);
+  bf16* w1s = reinterpret_cast<bf16*>(smem + L.w1);
+  bf16* w2s = reinterpret_cast<bf16*>(smem + L.w2);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  bf16* ow = reinterpret_cast<bf16*>(smem + L.x) + warp * 2 * kWarpRows * L.lda;
+  bf16* xw = ow + kWarpRows * L.lda;
+  const int FP = round_up(F, kChunk), n_panels = (FP + panel - 1) / panel;
+  const int n_tiles = (N + kWarpRows - 1) / kWarpRows;
+  const int stride = gridDim.x * kWarps;
+
+  for (int i = tid; i < DP; i += kThreads) {
+    const bool in = i < D;
+    bout_s[i] = in ? bout[i] : 0.f;
+    wn1_s[i] = in ? wn1[i] : 0.f;
+    b2_s[i] = in ? b2[i] : 0.f;
+    wn2_s[i] = in ? wn2[i] : 0.f;
+  }
+  for (int i = tid; i < FP; i += kThreads) b1s[i] = i < F ? b1[i] : 0.f;
+  auto load_panel = [&](int p) {  // every thread; W1 columns / W2 rows p*panel ..
+    const int c0 = p * panel;
+    copy_async(w1s, L.ld1, w1 + c0, F, DP, panel, D, F - c0, tid, kThreads);
+    copy_async(w2s, L.ld2, w2 + (size_t)c0 * D, D, panel, DP, F - c0, D, tid, kThreads);
+  };
+  auto load_rows = [&](int tile) {  // the warp's lanes: the tile's o and x, zeros past N
+    const int r0 = tile * kWarpRows;
+    copy_async(ow, L.lda, o + (size_t)r0 * D, D, kWarpRows, DP, N - r0, D, lane, 32);
+    copy_async(xw, L.lda, x + (size_t)r0 * D, D, kWarpRows, DP, N - r0, D, lane, 32);
+  };
+  copy_async(wout_s, L.lda, wout, D, DP, DP, D, D, tid, kThreads);
+  if (n_panels == 1) load_panel(0);  // once for every tile of the block
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Rounds of one tile a warp; the bound is the block's, so that every
+  // warp meets the panel barriers
+  if (blockIdx.x * kWarps + warp < n_tiles) load_rows(blockIdx.x * kWarps + warp);
+  cp_async_commit();
+  for (int base = blockIdx.x * kWarps; base < n_tiles; base += stride) {
+    const int tile = base + warp, row = tile * kWarpRows;
+    const bool active = tile < n_tiles;
+    cp_async_wait<0>();
+    __syncwarp();
+    uint32_t ya[DP / 16][4];
+    float acc[DP / 8][4] = {};  // a, then the FFN output, r2
+    if (active) {
+      uint32_t oa[DP / 16][4], r1[DP / 8][2];
+      float inv1[2];
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(oa[kk], tile_p1(ow, L.lda, 0, kk * 16, lane));
+      rows_nn<DP>(oa, wout_s, L.lda, acc);
+      tail_norm1<DP>(acc, xw, L.lda, bout_s, wn1_s, D, r1, inv1, ya);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    }
+    __syncwarp();  // the tile's o and x read: the buffers take the next tile's
+    if (tile + stride < n_tiles) load_rows(tile + stride);
+    cp_async_commit();
+    for (int p = 0; p < n_panels; ++p) {
+      if (n_panels > 1) {
+        __syncthreads();  // every warp is done with the previous panel
+        load_panel(p);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (!active) continue;
+      for (int c = 0, f0 = p * panel; c < panel && f0 < FP; c += kChunk, f0 += kChunk)
+        fwd_chunk<DP>(ya, w1s + c, L.ld1, w2s + c * L.ld2, L.ld2, b1s + f0, f0, row, drop, acc);
+    }
+    if (!active) continue;
+    // ---- r2 = round(y1 + round(ff + b2)), y = round(wn2 * (r2 * inv2)) ----
+    float inv2[2];
+    tail_residual2<DP>(acc, ya, b2_s, D, inv2);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c >= D) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int r = row + g + 8 * hr;
+        if (r < N)
+          *reinterpret_cast<uint32_t*>(y + (size_t)r * D + c) =
+              pack_bf16(__fmul_rn(wn2_s[c], __fmul_rn(acc[j][2 * hr], inv2[hr])),
+                        __fmul_rn(wn2_s[c + 1], __fmul_rn(acc[j][2 * hr + 1], inv2[hr])));
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+template <int DP>
+int launch(const void* x, const void* o, const void* wout, const void* bout, const void* wn1,
+           const void* w1, const void* b1, const void* w2, const void* b2, const void* wn2,
+           void* y, int N, int D, int F, Dropout drop, int device, void* stream) {
+  const size_t optin = tossctr::smem_optin(device);
+  int panel = round_up(F, kChunk);  // all of W1 and W2 if they fit, else the most that does
+  while (panel > kChunk && (size_t)Layout(DP, F, panel).total > optin) panel -= kChunk;
+  const size_t smem = (size_t)Layout(DP, F, panel).total;
+  if (smem > optin) return (int)cudaErrorInvalidConfiguration;
+  auto kern = tail_fwd_mma<DP>;
+  const int n_tiles = (N + kWarpRows - 1) / kWarpRows;
+  int grid = 0;
+  cudaError_t e = tossctr::prepare_launch(kern, kThreads, smem, (n_tiles + kWarps - 1) / kWarps,
+                                          device, 1, &grid);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(o), static_cast<const bf16*>(wout),
+      static_cast<const float*>(bout), static_cast<const float*>(wn1),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(wn2), static_cast<bf16*>(y), N, D,
+      F, panel, drop);
+  return (int)cudaGetLastError();
+}
+
+// D padded to the next multiple of 16
+int launch_bf16(const void* x, const void* o, const void* wout, const void* bout,
+                const void* wn1, const void* w1, const void* b1, const void* w2, const void* b2,
+                const void* wn2, void* y, int N, int D, int F, Dropout drop, int device,
+                void* stream) {
+  if (D <= 16)
+    return launch<16>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device, stream);
+  if (D <= 32)
+    return launch<32>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device, stream);
+  if (D <= 48)
+    return launch<48>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device, stream);
+  return launch<64>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, o, wout, w1, w2 and y share it;
-// biases and norm weights are float32).  D must be a multiple of 4 with
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel); x, o, wout, w1, w2 and y share it; biases and norm weights are
+// float32.  D must be a multiple of 4 with
 // (64/4)*(D/4) <= 256 output tiles, i.e. D <= 64; F a multiple of 4.
 // Dropout: keep_thresh (0 = off), keep_scale, seed (common.cuh Dropout).
 // Returns a cudaError_t code, 0 on success.
@@ -225,8 +428,8 @@ extern "C" int tossctr_fused_block_tail_fwd(const void* x, const void* o, const 
     return launch<float>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device,
                          stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop,
-                                 device, stream);
+    return tc::launch_bf16(x, o, wout, bout, wn1, w1, b1, w2, b2, wn2, y, N, D, F, drop, device,
+                           stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -343,10 +343,7 @@ ffn_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
           for (int k = 0; k < 8; ++k)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              float v = db1p[k][e];
-              v += __shfl_xor_sync(0xffffffffu, v, 4);
-              v += __shfl_xor_sync(0xffffffffu, v, 8);
-              v += __shfl_xor_sync(0xffffffffu, v, 16);
+              const float v = column_sum(db1p[k][e]);
               if (g == 0) db1s[warp * kChunk + k * 8 + 2 * t + e] = v;
             }
         }

@@ -8,8 +8,9 @@ one call on one card to hold them against each other:
 
 Prints the card's name and power limit, then one JSON line: {"root": ...,
 "ms": {row: ms}, "fp32_sha1": {row: digest}}, the digests those of the
-two attention forwards' fp32 outputs (their CUDA-core kernels) on the
-same inputs, so two checkouts' fp32 bits can be held against each other.
+fp32 outputs (the CUDA-core kernels) of the two attention forwards and
+of the block tail's forward and backward on the same inputs, so two
+checkouts' fp32 bits can be held against each other.
 It imports only the package of ``--root`` and reads only the kernels'
 public wrappers, so any checkout since the port's tensor-core PRs can be
 timed by it.
@@ -97,6 +98,10 @@ def main(argv=None) -> int:
                                               P_DROP, SEED),
            "fused_mha": ops.fused_mha(q.float(), k.float(), v.float(), bias.float(), H, P_DROP,
                                       SEED)}
+    tail32 = [t.float() for t in tail]
+    f32["fused_block_tail"] = ops.fused_block_tail(*tail32, P_DROP, SEED)
+    f32["fused_block_tail_bwd"] = torch.cat(
+        [t.flatten() for t in ops.fused_block_tail_bwd(*tail32, dy.float(), P_DROP, SEED)])
     sha1 = {n: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest() for n, t in f32.items()}
     print(json.dumps({"root": root, "ms": ms, "fp32_sha1": sha1}), flush=True)
     return 0

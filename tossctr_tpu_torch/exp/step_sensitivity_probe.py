@@ -45,6 +45,11 @@ does (gradients, worst tensor, accumulator, row update) beside the
 Run it from the root of a checkout, on a card:
 
     python -m tossctr_tpu_torch.exp.step_sensitivity_probe
+
+With ``--fixed-check`` it runs only ``chip_smoke.py``'s fixed bf16 check
+(``PinnedPlain``: the ReLUs pinned, the bands of None derived from the
+perturbation witness) on the step as built and on the step with the
+tensor-core qkv forward, and exits non-zero unless both pass.
 """
 
 from __future__ import annotations
@@ -201,27 +206,29 @@ def relu_flips(cs, model, init, batch, dev, ctx, ref_ctx):
     return rows, lines
 
 
-@contextlib.contextmanager
-def pinned_relus(signs):
-    """``torch.relu`` swapped for x times the sign masks ``signs`` (one a
-    call, in call order, from ``chip_smoke.relu_signs``): every ReLU keeps
-    the inputs another forward kept, whatever their sign here."""
-    relu, calls = torch.relu, iter(signs)
+def fixed_check(cs, cfg, model, init, part, dev, ids, mma_lib):
+    """The fixed bf16 check (``chip_smoke.PinnedPlain``: every ReLU pinned
+    to the plain step's signs, the bands of None derived from the
+    perturbation witness) on the step as built and on the step with
+    ``fused_mha_qkv``'s forward on the tensor cores: -> whether both pass."""
+    pin = cs.PinnedPlain(cfg, model, init, part, dev, ids)
+    bands, wit = pin.witness(cs.CHECK_BANDS["bf16"]["vs_plain"])
+    for k, w in wit.items():
+        log(f"witness {k}: " + ", ".join(f"{m} {w[m]:.4g}" for m in bands))
+    ok = True
+    for label, ctx in (("as built", contextlib.nullcontext),
+                       ("qkv forward on the tensor cores", lambda: library(mma_lib))):
+        g = pin.compare(ctx)
+        off = [m for m, b in bands.items() if not g[m] <= b]
+        ok &= not off
+        log(f"fixed check, {label} ({pin.flips(ctx)} ReLU inputs of another sign unpinned): "
+            + ", ".join(f"{m} {g[m]:.4g} (band {b:.4g})" for m, b in bands.items())
+            + f"; {'FAILS ' + ', '.join(off) if off else 'passes'}")
+    return ok
 
-    def pinned(x):
-        m = next(calls)
-        if tuple(m.shape) != tuple(x.shape):
-            raise AssertionError(f"ReLU call of {tuple(x.shape)} against a mask {tuple(m.shape)}")
-        return x * m.to(device=x.device, dtype=x.dtype)
 
-    torch.relu = pinned
-    try:
-        yield
-    finally:
-        torch.relu = relu
-
-
-def main() -> int:
+def main(argv=None) -> int:
+    fixed_only = "--fixed-check" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("step_sensitivity_probe: needs a CUDA card", file=sys.stderr)
         return 2
@@ -273,6 +280,8 @@ def main() -> int:
 
         ids = torch.unique(sel)
         ids = ids[ids != cfg.sequence.pad_id]
+        if fixed_only:
+            return 0 if fixed_check(cs, cfg, model, init, part, dev, ids, mma_lib) else 1
 
         def record(ctx, sub):
             with ctx():
@@ -308,7 +317,7 @@ def main() -> int:
 
             @contextlib.contextmanager
             def pinned(c):
-                with c(), pinned_relus(signs):
+                with c(), cs.pinned_relus(signs):
                     yield
 
             report(f"{label}: every ReLU pinned to the plain step's signs, on both sides "

@@ -6,9 +6,11 @@ Port of ``tossctr_tpu/ops/pallas_ffn.py``:
 
 * ``fused_block_tail``: the forward (``_tail_fwd_call``) and its backward
   (``_tail_bwd_call``); kernels ``csrc/fused_block_tail.cu`` and
-  ``csrc/fused_block_tail_bwd.cu``, plain versions
-  ``fused_block_tail_reference`` / ``fused_block_tail_bwd_reference``.
-  The RMSNorm encoder layer with both kernel flags runs it.
+  ``csrc/fused_block_tail_bwd.cu`` (bf16 on the tensor cores with the
+  stages of ``csrc/ffn_mma.cuh``; fp32 exact on the CUDA cores), plain
+  versions ``fused_block_tail_reference`` /
+  ``fused_block_tail_bwd_reference``.  The RMSNorm encoder layer with
+  both kernel flags runs it.
 * ``fused_ffn``: drop(gelu_tanh(x W1 + b1)) W2 + b2, the forward
   (``_fwd_call``) and its backward (``_bwd_call``); kernels
   ``csrc/fused_ffn.cu`` and ``csrc/fused_ffn_bwd.cu`` (bf16 on the tensor
