@@ -28,7 +28,8 @@
    at those shapes; and
    ``sweep_rows_add`` at the flagship's table update (the (10M, 128) bf16
    table, 8192 x 64 ids, fp32 deltas) with uniform, zipf:1.0 and hot-id
-   ids, against its plain version and ``Tensor.index_add_``.
+   ids, against its plain version and ``Tensor.index_add_``, with its
+   wrapper's sort, search and kernels timed apart.
 4. Serving phase: a synthetic flagship test cache (3.5 batches of 8192
    rows), two full-width fold checkpoints (10M-row bf16 sequence table)
    from a seeded init with temperature calibrators, then ``infer_main``
@@ -599,10 +600,15 @@ def sweep_kernel_row(cfg, dev):
     second run bit-equal to the first, untouched rows unchanged; timed
     beside the plain version, ``Tensor.index_add_`` of the bf16 deltas
     (atomics, table-dtype sums: not bit-equal) and the bound (ids and
-    deltas read once, each touched row read and written once)."""
+    deltas read once, each touched row read and written once; the sort's
+    int32 permutation, which the kernel also reads, is left out of it);
+    the wrapper's parts timed apart: the sort (``sort_ids``), the search
+    (``piece_ends``) and the two kernels (``launch_sorted``)."""
     import torch
 
     from tossctr_tpu_torch.ops import sweep_rows_add, sweep_rows_add_reference
+
+    sw = importlib.import_module("tossctr_tpu_torch.ops.sweep_scatter")
 
     V, W = cfg.model.seq_vocab, 2 * cfg.model.emb_dim
     K = -(-cfg.sequence.top_k // 8) * 8
@@ -636,19 +642,26 @@ def sweep_kernel_row(cfg, dev):
         del again, want, mask, g_t, w_t
         n_bytes = ids.numel() * ids.element_size() + deltas.numel() * 4 + touched.numel() * W * 4
         b_ms, b_by = bound_ms(n_bytes, 0)
+        ids_s, order = sw.sort_ids(ids, V)
+        seg_end = sw.piece_ends(ids_s)
         case = dict(ids=kind, N=N, unique=touched.numel(), max_abs_err=err,
                     rows_differing_elements=diff, bound_ms=b_ms, bound_by=b_by,
                     ms=cuda_time_ms(lambda: sweep_rows_add([got], ids, [deltas]), iters=10),
+                    sort_ms=cuda_time_ms(lambda: sw.sort_ids(ids, V), iters=10),
+                    search_ms=cuda_time_ms(lambda: sw.piece_ends(ids_s), iters=10),
+                    kernels_ms=cuda_time_ms(lambda: sw.launch_sorted([got], [deltas], ids_s, order,
+                                                                     seg_end, V, W), iters=10),
                     plain_ms=cuda_time_ms(lambda: sweep_rows_add_reference([got], ids, [deltas]),
                                           iters=3, warmup=1),
                     library_ms=cuda_time_ms(lambda: got.index_add_(0, ids, d_bf), iters=10))
         cases.append(case)
         log(f"[kernel] sweep_rows_add V={V} W={W} N={N} ids={kind}: {case['unique']} unique; "
             f"max_abs_err {err:.6g} ({diff:.3%} of the touched elements one ulp apart; band one "
-            f"bf16 ulp), repeats bit for bit; {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} "
-            f"ms, index_add_ {case['library_ms']:.4f} ms (atomic bf16 sums: not bit-equal), "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        del got, ids, touched
+            f"bf16 ulp), repeats bit for bit; {case['ms']:.4f} ms (sort {case['sort_ms']:.4f}, "
+            f"search {case['search_ms']:.4f}, kernels {case['kernels_ms']:.4f}), plain "
+            f"{case['plain_ms']:.4f} ms, index_add_ {case['library_ms']:.4f} ms (atomic bf16 "
+            f"sums: not bit-equal), bound {b_ms:.4f} ms ({b_by}; the 2 MB permutation left out)")
+        del got, ids, touched, ids_s, order, seg_end
         torch.cuda.empty_cache()
     del table, deltas, d_bf
     torch.cuda.empty_cache()

@@ -148,6 +148,16 @@ def make_batch(d: dict, B: int = 8, seed: int = 0) -> dict:
 # the init's compile again
 _KERNEL_SWITCHES = ("use_pallas_attention", "use_pallas_ffn")
 _INIT_CACHE: dict = {}
+# XLA's CPU compiler options for the JAX programs the tests only run once
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def compiled(jitted, *args):
+    """``jitted`` (a ``jax.jit`` function) compiled for ``args`` with
+    ``FAST_COMPILE``: no LLVM optimisation, which halves the compile of a
+    small program run once or twice.  The same XLA program; LLVM's
+    optimisations could only move a rounding (a fused multiply-add)."""
+    return jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
 
 
 def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
@@ -162,7 +172,7 @@ def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
     import jax
 
     from tossctr_tpu.config import Config
-    from tossctr_tpu.train.trainer import build_model, jitted_init
+    from tossctr_tpu.train.trainer import build_model
 
     model = build_model(Config.from_dict(copy.deepcopy(d)), dims_for(d))
     plain_d = copy.deepcopy(d)
@@ -171,7 +181,13 @@ def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
            tuple((k, np.shape(v), str(np.asarray(v).dtype)) for k, v in sorted(batch.items())))
     if key not in _INIT_CACHE:
         plain = build_model(Config.from_dict(plain_d), dims_for(d))
-        _INIT_CACHE[key] = {"params": jitted_init(plain, jax.random.PRNGKey(seed), batch)["params"]}
+        # the program of ``jitted_init`` (tossctr_tpu/train/trainer.py),
+        # which the JAX package uses for its parameters: keep the two
+        # alike.  Compiled without LLVM's optimisations: it only draws the
+        # parameters, and compiles in half the time
+        init = jax.jit(lambda k, b: plain.init(k, b, deterministic=True))
+        args = (jax.random.PRNGKey(seed), batch)
+        _INIT_CACHE[key] = {"params": compiled(init, *args)(*args)["params"]}
     variables = _INIT_CACHE[key]
     shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(seed), batch,
                                                deterministic=True))

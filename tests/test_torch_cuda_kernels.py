@@ -36,11 +36,16 @@ walks, its backward at grids of 1 and 7 blocks (dx and do bit-equal to
 the default grid's) and through autograd; the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
 of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
-tables with duplicates, out-of-range ids, uniform and zipf ids and one
-id hot across many of the kernel's 64-position pieces; the scatter
-probe's two table sweeps on bf16 tables whose size is and is not a
-multiple of a (16, W) block, the sparse one over lists with padding
-repeats, ids outside the table and none at all; the dropout-mask dump
+tables (each with its own delta tensor) with duplicates, out-of-range
+ids, uniform and zipf ids and one id hot across many of the kernel's
+64-position pieces, N not a multiple of a piece, fp32 deltas and (on
+bf16 tables) bf16 ones, N = 0 and 1, and its refusal of deltas of
+another dtype, of mixed dtypes, not contiguous or not aligned; the
+scatter probe's two table sweeps on bf16 tables whose size is and is
+not a multiple of a (16, W) block, of the kernel's 8192-element item and
+of 8 elements, one of thousands of items, the sparse one over lists
+with padding repeats, ids outside the table and none at all; the
+dropout-mask dump
 kernel at the attention and FFN geometries and ragged shapes; and the
 persistent kernels at a grid of a few blocks against their default
 grid.  Tolerances:
@@ -519,14 +524,16 @@ def test_cuda_kernels_match_plain_versions():
         with pytest.raises(ValueError):
             fm_cross_pallas_bwd(z, U, V, g)  # H*R > 128
 
-    def sweep(dtype, V, D, n_tables, ids):
+    def sweep(dtype, V, D, n_tables, ids, ddtype="f32"):
         """sweep_rows_add against its plain version on copies of the same
         tables: rows within one ulp, untouched rows unchanged, and a second
-        run from the same tables repeats the first bit for bit."""
+        run from the same tables repeats the first bit for bit; the deltas
+        fp32 or (``ddtype``) bf16."""
         dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+        ddt = torch.bfloat16 if ddtype == "bf16" else torch.float32
         gen = torch.Generator().manual_seed(6)
         tables = [torch.randn(V, D, generator=gen).to(dev, dt) for _ in range(n_tables)]
-        deltas = [torch.randn(ids.numel(), D, generator=gen).mul(0.05).to(dev)
+        deltas = [torch.randn(ids.numel(), D, generator=gen).mul(0.05).to(dev, ddt)
                   for _ in range(n_tables)]
         ids = ids.to(dev)
         got, again, want = ([t.clone() for t in tables] for _ in range(3))
@@ -546,6 +553,39 @@ def test_cuda_kernels_match_plain_versions():
             band = (ulp * torch.maximum(g.float().abs(), w.float().abs())
                     + 1e-5 * float(w.float().abs().max()))
             assert bool((err <= band).all()), f"max err {float(err.max())}"
+
+    def sweep_edges():
+        """sweep_rows_add with no ids (no launch, tables unchanged) and one;
+        deltas the kernel does not take raise before a launch: fp16 or
+        fp64, fp32 and bf16 mixed, bf16 into an fp32 table, a transposed
+        view, a view one element off its alignment."""
+        table = torch.randn(300, 8, device=dev).to(torch.bfloat16)
+        before = sweep_rows_add.launches
+        got = table.clone()
+        sweep_rows_add([got], torch.zeros(0, dtype=torch.long, device=dev),
+                       [torch.zeros(0, 8, device=dev)])
+        assert torch.equal(got, table) and sweep_rows_add.launches == before
+        one = torch.tensor([123], device=dev)
+        d1 = torch.randn(1, 8, device=dev)
+        got, want = table.clone(), table.clone()
+        sweep_rows_add([got], one, [d1])
+        sweep_rows_add_reference([want], one, [d1])
+        assert torch.equal(got, want) and sweep_rows_add.launches == before + 1
+        ids = torch.randint(0, 300, (40,), device=dev)
+        two = [table.clone(), table.clone()]
+        buf = torch.randn(40 * 8 + 1, device=dev)
+        for tabs, ds, exc in (
+                ([table], [torch.randn(40, 8, device=dev).half()], TypeError),
+                ([table], [torch.randn(40, 8, device=dev).double()], TypeError),
+                (two, [torch.randn(40, 8, device=dev),
+                       torch.randn(40, 8, device=dev).to(torch.bfloat16)], TypeError),
+                ([table.float()], [torch.randn(40, 8, device=dev).to(torch.bfloat16)],
+                 TypeError),
+                ([table], [torch.randn(8, 40, device=dev).t()], ValueError),
+                ([table], [buf[1:].view(40, 8)], ValueError)):
+            with pytest.raises(exc):
+                sweep_rows_add(tabs, ids, ds)
+        assert sweep_rows_add.launches == before + 1
 
     def sweep_ids(kind, V, N):
         gen = torch.Generator().manual_seed(7)
@@ -631,8 +671,12 @@ def test_cuda_kernels_match_plain_versions():
                             (4103, 64, 1024, [1, 16, 16, 16]),  # a partial last block, listed
                             (5000, 128, 4096, [2, 9, 40]),  # 9 whole blocks: 40 is outside
                             (4096, 64, 16384, []),  # an empty list
-                            (37, 16, 1024, [0])):  # one partial block
-        checks.run(f"table sweeps V={V} D={D} W={W} {blocks}", table_sweeps, V, D, W, blocks)
+                            (37, 16, 1024, [0]),  # one partial block
+                            (4099, 6, 1024, [0, 1, 1]),  # 24,594 elements: not a multiple of 8
+                            # 7,813 items of 8192 elements a dense sweep
+                            (1_000_003, 64, 1024, list(range(0, 3907, 3)) + [3906, 3906])):
+        listed = blocks if len(blocks) < 8 else f"{len(blocks)} blocks"
+        checks.run(f"table sweeps V={V} D={D} W={W} {listed}", table_sweeps, V, D, W, blocks)
     for B, K, H, N, F, p, seed in ((64, 12, 8, 128, 256, 0.3, 1234),
                                    (9, 64, 8, 577, 384, 0.1, 2**31 - 2),
                                    (5, 13, 4, 37, 40, 0.15, 7)):
@@ -657,8 +701,13 @@ def test_cuda_kernels_match_plain_versions():
                            True)
         for kind in ("uniform", "zipf", "hot"):
             for n_tables, D in ((1, 128), (2, 16)):
-                checks.run(f"sweep {dtype} {kind} tables={n_tables} D={D}", sweep, dtype, 5000,
-                           D, n_tables, sweep_ids(kind, 5000, 4000))
+                for ddtype in ("f32", "bf16") if dtype == "bf16" else ("f32",):
+                    checks.run(f"sweep {dtype} {kind} tables={n_tables} D={D} deltas {ddtype}",
+                               sweep, dtype, 5000, D, n_tables, sweep_ids(kind, 5000, 4000),
+                               ddtype)
+    # the hot id over 31 pieces, N = 4000 and 4001 not multiples of the piece
+    checks.run("sweep bf16 hot N=4001", sweep, "bf16", 5000, 64, 1, sweep_ids("hot", 5000, 4001))
+    checks.run("sweep edges", sweep_edges)
     for dtype in ("f32", "bf16"):
         for p in (0.0, P_DROP):
             for B, K, D, H in ((64, 64, 64, 8), (9, 61, 64, 8), (5, 13, 16, 4)):

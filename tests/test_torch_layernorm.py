@@ -128,8 +128,9 @@ def test_layernorm_paths_match_jax(tmp_path):
             out = jl.apply({"params": p}, x_, deterministic=True)
             return jnp.sum(out * g), out
 
-        (_, jout), (jgp, jgx) = jax.jit(
-            jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(x))
+        jx = jnp.asarray(x)
+        grads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))
+        (_, jout), (jgp, jgx) = H.compiled(grads, params, jx)(params, jx)
         tl = DAREEncoderLayer(D, NH, FH, mha_dropout=0.1, ffn_dropout=0.1, norm=norm,
                               max_len=K, use_pallas_attn=attn, use_pallas_ffn=ffn,
                               fuse_block=fuse_block)
@@ -200,7 +201,8 @@ def test_layernorm_paths_match_jax(tmp_path):
                                               deterministic=True, mutable=["intermediates"])
                 return jax_bce(z, batch["y"]) + AUX_W * jax_bce(aux, batch["y"])
 
-            return jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))(rest, perts0)
+            grads = jax.jit(jax.value_and_grad(loss_fn, argnums=(0, 1)))
+            return H.compiled(grads, rest, perts0)(rest, perts0)
 
         cfg = Config.from_dict(copy.deepcopy(d))
         model = trainer.build_model(cfg, dims, device="cpu")
@@ -227,7 +229,8 @@ def test_layernorm_paths_match_jax(tmp_path):
         for p in model.parameters():
             p.grad = None
 
-        jstate, jl = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+        jbatch = jax.tree_util.tree_map(jnp.asarray, batch)
+        jstate, jl = H.compiled(jstep, jstate, jbatch)(jstate, jbatch)
         state, tl = step(state, H.torch_batch(batch))
         _close("step loss", float(tl), float(jl), 1e-4)
         jparams = flax_to_state_dict(jax.device_get(jstate.params))

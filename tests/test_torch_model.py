@@ -31,7 +31,8 @@ def _compare(d, seeds=(1, 2), B=8):
 
     batch0 = H.make_batch(d, B=B, seed=seeds[0])
     model, variables = H.jax_model_and_variables(d, batch0)
-    apply = jax.jit(lambda v, b: model.apply(v, b, deterministic=True))
+    apply = H.compiled(jax.jit(lambda v, b: model.apply(v, b, deterministic=True)), variables,
+                       batch0)
     port = H.port_model(d, variables)
     worst = {"z": 0.0, "p": 0.0, "aux": 0.0}
     for s in seeds:

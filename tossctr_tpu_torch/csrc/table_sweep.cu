@@ -23,19 +23,30 @@
 // listed block.  One add an element.
 //
 // Design: the TPU grid walks the blocks one after another on one core;
-// here one CUDA block of 256 threads takes one (16, W) block (B: the
-// grid is the table's blocks; C: the list's entries), and all run at
-// once over the SMs.  A thread moves 16 bytes (8 bf16) a load and a
-// store, neighbouring threads on neighbouring addresses, with four loads
-// in flight before their stores; an element tail that is not a multiple
-// of 8 (a partial last block) goes element by element.
+// here the work is cut into items of at most kChunk elements, 16 KB
+// (dense: the whole table; sparse: each listed block, so an item never
+// crosses a block, and an item of a skipped entry is empty), and a CUDA
+// block of 256 threads takes one item: each thread issues its kDepth
+// 16-byte loads (neighbouring threads on neighbouring addresses), then
+// adds and stores them.  The ~156k blocks of a flagship sweep leave the
+// block scheduler to keep the SMs full: 5 blocks an SM (44 registers a
+// thread) keep 80 KB of reads in flight, where 3.35 TB/s at ~1 us needs
+// ~25 KB.  An element tail that is not a multiple of 8 (the end of a
+// table whose size is not) goes element by element.
+//
+// The designs timed against it (exp/sweep_design_probe.py, which builds
+// them from exp/table_sweep_designs.cu; PERF.md): a bulk-copy ring
+// through shared memory on a persistent grid and the same register walk
+// on a persistent grid ran 2-5% slower on the H100; deeper loads or
+// smaller blocks here timed within 0.2%.
 #include "common.cuh"
 
 namespace {
 
+constexpr int kRows = 16;     // rows of W elements a block, the probe's BlockSpec (16, W)
 constexpr int kThreads = 256;
-constexpr int kRows = 16;   // rows of W elements a block, the probe's BlockSpec (16, W)
-constexpr int kUnroll = 4;  // 16-byte loads in flight a thread
+constexpr int kDepth = 4;     // 16-byte loads in flight a thread
+constexpr int kChunk = kThreads * kDepth * 8;  // elements an item
 
 __device__ __forceinline__ uint32_t add2(uint32_t u, float c) {
   __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
@@ -44,50 +55,64 @@ __device__ __forceinline__ uint32_t add2(uint32_t u, float c) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// elements [start, end) of the table += c, by the whole thread block
-__device__ __forceinline__ void sweep_range(__nv_bfloat16* __restrict__ t, size_t start,
-                                            size_t end, float c) {
-  const size_t nvec = (end - start) / 8;
-  uint4* v = reinterpret_cast<uint4*>(t + start);  // start is a multiple of 16*W
-  for (size_t i0 = threadIdx.x; i0 < nvec; i0 += (size_t)kThreads * kUnroll) {
-    uint4 r[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t i = i0 + (size_t)u * kThreads;
-      if (i < nvec) r[u] = v[i];
+__device__ __forceinline__ uint4 add8(uint4 r, float c) {
+  r.x = add2(r.x, c);
+  r.y = add2(r.y, c);
+  r.z = add2(r.z, c);
+  r.w = add2(r.w, c);
+  return r;
+}
+
+// The walk: item k -> the element range [s, e) it sweeps (empty for a
+// skipped list entry).  B: the table in chunks.  C: list entry k /
+// chunks, its block's chunk k % chunks.
+struct Walk {
+  size_t n;            // elements of the table
+  size_t block;        // elements a (16, W) block
+  long long n_blocks;  // blocks of the table, a partial last one included
+  const int* ids;      // the block list (C), or nullptr (B)
+  long long chunks;    // chunks a block (C)
+
+  __device__ __forceinline__ void range(long long k, size_t& s, size_t& e) const {
+    if (ids == nullptr) {
+      s = (size_t)k * kChunk;
+      e = s + kChunk < n ? s + kChunk : n;
+      return;
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t i = i0 + (size_t)u * kThreads;
-      if (i < nvec) {
-        r[u].x = add2(r[u].x, c);
-        r[u].y = add2(r[u].y, c);
-        r[u].z = add2(r[u].z, c);
-        r[u].w = add2(r[u].w, c);
-        v[i] = r[u];
-      }
+    const long long i = k / chunks;
+    const long long b = ids[i];
+    if ((i > 0 && ids[i - 1] == b) || b < 0 || b >= n_blocks) {
+      s = e = 0;
+      return;
     }
+    const size_t b0 = (size_t)b * block;
+    const size_t end = b0 + block < n ? b0 + block : n;  // a partial last block ends early
+    s = b0 + (size_t)(k - i * chunks) * kChunk;
+    if (s > end) s = end;
+    e = s + kChunk < end ? s + kChunk : end;
   }
-  for (size_t i = start + nvec * 8 + threadIdx.x; i < end; i += kThreads)
+};
+
+// CUDA block k sweeps item k
+__global__ void __launch_bounds__(kThreads)
+sweep_kernel(__nv_bfloat16* __restrict__ t, Walk w, float c) {
+  size_t a, e;
+  w.range(blockIdx.x, a, e);
+  const size_t nv = (e - a) / 8;  // at most kThreads * kDepth
+  uint4* v = reinterpret_cast<uint4*>(t + a);  // a is a multiple of 8
+  uint4 r[kDepth];
+#pragma unroll
+  for (int u = 0; u < kDepth; ++u) {
+    const size_t i = threadIdx.x + (size_t)u * kThreads;
+    if (i < nv) r[u] = v[i];
+  }
+#pragma unroll
+  for (int u = 0; u < kDepth; ++u) {
+    const size_t i = threadIdx.x + (size_t)u * kThreads;
+    if (i < nv) v[i] = add8(r[u], c);
+  }
+  for (size_t i = a + nv * 8 + threadIdx.x; i < e; i += kThreads)
     t[i] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(t[i]), c));
-}
-
-// B: CUDA block b sweeps table block b
-__global__ void __launch_bounds__(kThreads)
-dense_sweep_kernel(__nv_bfloat16* __restrict__ t, size_t n, size_t block, float c) {
-  const size_t start = (size_t)blockIdx.x * block;
-  sweep_range(t, start, start + block < n ? start + block : n, c);
-}
-
-// C: CUDA block i sweeps table block ids[i], unless it repeats ids[i - 1]
-__global__ void __launch_bounds__(kThreads)
-sparse_sweep_kernel(__nv_bfloat16* __restrict__ t, size_t n, size_t block,
-                    const int* __restrict__ ids, long long n_blocks, float c) {
-  const int i = blockIdx.x;
-  const int b = ids[i];
-  if ((i > 0 && ids[i - 1] == b) || b < 0 || b >= n_blocks) return;
-  const size_t start = (size_t)b * block;
-  sweep_range(t, start, start + block < n ? start + block : n, c);
 }
 
 }  // namespace
@@ -101,19 +126,22 @@ extern "C" int tossctr_table_sweep(void* table, long long n, int W, float add, c
   if (n < 0 || W < 1 || n_ids < 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t block = (size_t)kRows * W;
-  const long long n_blocks = (long long)(((size_t)n + block - 1) / block);
-  __nv_bfloat16* t = static_cast<__nv_bfloat16*>(table);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Walk w{};
+  w.n = (size_t)n;
+  w.block = (size_t)kRows * W;
+  w.n_blocks = (long long)((w.n + w.block - 1) / w.block);
+  long long n_items;
   if (ids == nullptr) {
-    if (n_blocks == 0) return 0;
-    if (n_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    dense_sweep_kernel<<<(unsigned)n_blocks, kThreads, 0, s>>>(t, (size_t)n, block, add);
+    n_items = (long long)((w.n + kChunk - 1) / kChunk);
   } else {
-    if (n_ids == 0) return 0;
-    sparse_sweep_kernel<<<n_ids, kThreads, 0, s>>>(t, (size_t)n, block,
-                                                   static_cast<const int*>(ids), n_blocks, add);
+    w.ids = static_cast<const int*>(ids);
+    w.chunks = (long long)((w.block + kChunk - 1) / kChunk);
+    n_items = (long long)n_ids * w.chunks;
   }
+  if (n_items == 0) return 0;
+  if (n_items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sweep_kernel<<<(unsigned)n_items, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<__nv_bfloat16*>(table), w, add);
   return (int)cudaGetLastError();
 }
 

@@ -7,19 +7,31 @@ one call on one card to hold them against each other:
     python tossctr_tpu_torch/exp/kernel_times.py --root <checkout>
 
 Prints the card's name and power limit, then one JSON line: {"root": ...,
-"ms": {row: ms}, "fp32_sha1": {row: digest}}, the digests those of the
-fp32 outputs (the CUDA-core kernels) of the two attention forwards and
-of the block tail's forward and backward on the same inputs, so two
-checkouts' fp32 bits can be held against each other.
+"ms": {row: ms}, "fp32_sha1": {row: digest}, "bf16_sha1": {row: digest},
+"sweep_parts_ms": {part: ms}}.  The fp32 digests are those of the fp32
+outputs (the CUDA-core kernels) of the two attention forwards and of the
+block tail's forward and backward on the same inputs, and of the (10M,
+128) fp32 table after one ``sweep_rows_add``; the bf16 ones those of the
+(10M, 128) bf16 table after one ``sweep_rows_add``, one ``dense_sweep``
+or one ``sparse_sweep`` (W = 1024, the blocks the update's ids touch);
+each table a fresh clone; so two checkouts' bits can be held against
+each other.  The row ``sweep_rows_add_fp32`` times the update of the
+fp32 table.  ``sweep_parts_ms`` splits ``sweep_rows_add``'s call (the
+bf16 table) into the wrapper's sort, its search and the two kernels,
+and for a checkout whose wrapper still packed the deltas (before the
+kernel read them through the sort's permutation) the pack as well: the
+split of the older call in PERF.md comes from that branch.
 It imports only the package of ``--root`` and reads only the kernels'
-public wrappers, so any checkout since the port's tensor-core PRs can be
-timed by it.
+public wrappers (the sweep's parts aside), so any checkout since the
+port's tensor-core PRs can be timed by it.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
+import importlib
 import json
 import pathlib
 import subprocess
@@ -30,7 +42,66 @@ VALID_K = 60
 N_NUM, N_CAT = 82, 35  # the QNN head's numeric and categorical fields
 FM_HEADS, FM_RANK, FM_OUT = 6, 16, 192
 TABLE_ROWS, TABLE_WIDTH = 10_000_000, 128
+SWEEP_W = 1024  # the table sweeps' block width
 P_DROP, SEED = 0.1, 1234567
+
+
+def sha1(t) -> str:
+    """The digest of a tensor's bytes, of any dtype."""
+    import torch
+
+    return hashlib.sha1(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()).hexdigest()
+
+
+def sweep_parts(table, ids, deltas):
+    """ms of each part of ``sweep_rows_add([table], ids, [deltas])``: the
+    sort, the pack of the deltas (the older wrapper only), the search and
+    the kernels, each timed alone on the outputs of the parts before it."""
+    import torch
+
+    from tossctr_tpu_torch.exp._timing import cuda_time_ms
+    from tossctr_tpu_torch.ops._build import DTYPE_CODES, load_library, stream_of
+
+    sw = importlib.import_module("tossctr_tpu_torch.ops.sweep_scatter")
+    V, D = table.shape
+    if hasattr(sw, "launch_sorted"):  # the kernel reads the deltas through the permutation
+        ids_s, order = sw.sort_ids(ids, V)
+        seg_end = sw.piece_ends(ids_s)
+        return dict(sort=cuda_time_ms(lambda: sw.sort_ids(ids, V)),
+                    search=cuda_time_ms(lambda: sw.piece_ends(ids_s)),
+                    kernels=cuda_time_ms(lambda: sw.launch_sorted(
+                        [table], [deltas], ids_s, order, seg_end, V, D)))
+    # the older wrapper: sort, cast and permute the deltas, search, kernels
+    lib, N = load_library("sweep_rows_add"), ids.numel()
+    piece = lib.tossctr_sweep_piece()
+    n_pieces = -(-N // piece)
+
+    def sort():
+        i32 = ids.reshape(-1).to(torch.int32)
+        i32 = torch.where((i32 >= 0) & (i32 < V), i32, torch.full_like(i32, V))
+        return torch.sort(i32, stable=True)
+
+    def pack():
+        return torch.cat([deltas.reshape(N, D).to(table.dtype)], dim=1).index_select(0, order)
+
+    def search():
+        last = torch.clamp(torch.arange(1, n_pieces + 1, device=ids.device) * piece - 1,
+                           max=N - 1)
+        return torch.searchsorted(ids_s, ids_s[last], right=True).to(torch.int32)
+
+    ids_s, order = sort()
+    packed, seg_end = pack(), search()
+    ptrs = (ctypes.c_void_p * 1)(table.data_ptr())
+
+    def kernels():
+        head, tail = (torch.empty(n_pieces, D, dtype=torch.float32, device=ids.device)
+                      for _ in range(2))
+        lib.tossctr_sweep_rows_add(ptrs, 1, ids_s.data_ptr(), packed.data_ptr(),
+                                   seg_end.data_ptr(), head.data_ptr(), tail.data_ptr(), N, V, D,
+                                   DTYPE_CODES[table.dtype], ids.device.index, stream_of(ids))
+
+    return dict(sort=cuda_time_ms(sort), pack=cuda_time_ms(pack), search=cuda_time_ms(search),
+                kernels=cuda_time_ms(kernels))
 
 
 def main(argv=None) -> int:
@@ -75,8 +146,22 @@ def main(argv=None) -> int:
     U, V = rnd(FM_HEADS, D, FM_RANK, std=0.1), rnd(FM_HEADS, FM_RANK, FM_OUT, std=0.1)
     gz = rnd(B, FM_HEADS * FM_OUT)
     table = rnd(TABLE_ROWS, TABLE_WIDTH)
+    table32 = rnd(TABLE_ROWS, TABLE_WIDTH, dtype=f32)
     ids = torch.randint(0, TABLE_ROWS, (N,), generator=g, device=dev)
     deltas = rnd(N, TABLE_WIDTH, std=0.01, dtype=f32)
+    blocks = ops.touched_superblocks(ids, TABLE_ROWS, TABLE_WIDTH, SWEEP_W)
+    fresh = table32.clone()
+    ops.sweep_rows_add([fresh], ids, [deltas])
+    sweep32_sha1 = sha1(fresh)
+    del fresh
+    bf16_sha1 = {}
+    for name, fn in (("sweep_rows_add", lambda t: ops.sweep_rows_add([t], ids, [deltas])),
+                     ("dense_sweep", lambda t: ops.dense_sweep(t, SWEEP_W)),
+                     ("sparse_sweep", lambda t: ops.sparse_sweep(t, SWEEP_W, blocks))):
+        fresh = table.clone()
+        fn(fresh)
+        bf16_sha1[name] = sha1(fresh)
+        del fresh
     rows = {
         "fused_mha_qkv": lambda: ops.fused_mha_qkv(x, wqkv, bqkv, bias, H, P_DROP, SEED),
         "fused_mha_qkv_bwd": lambda: ops.fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, H, P_DROP,
@@ -90,10 +175,14 @@ def main(argv=None) -> int:
         "fm_cross_pallas": lambda: fm_cross_pallas_fwd(z, U, V),
         "fm_cross_pallas_bwd": lambda: ops.fm_cross_pallas_bwd(z, U, V, gz),
         "sweep_rows_add": lambda: ops.sweep_rows_add([table], ids, [deltas]),
+        "sweep_rows_add_fp32": lambda: ops.sweep_rows_add([table32], ids, [deltas]),
+        "dense_sweep": lambda: ops.dense_sweep(table, SWEEP_W),
+        "sparse_sweep": lambda: ops.sparse_sweep(table, SWEEP_W, blocks),
         "dump_attention_keep": lambda: masks.dump_attention_keep(B, K, H, P_DROP, SEED, dev),
         "dump_ffn_keep": lambda: masks.dump_ffn_keep(N, FH, P_DROP, SEED, dev),
     }
     ms = {n: cuda_time_ms(f) for n, f in rows.items()}
+    del table32
     f32 = {"fused_mha_qkv": ops.fused_mha_qkv(x.float(), wqkv.float(), bqkv, bias.float(), H,
                                               P_DROP, SEED),
            "fused_mha": ops.fused_mha(q.float(), k.float(), v.float(), bias.float(), H, P_DROP,
@@ -102,8 +191,11 @@ def main(argv=None) -> int:
     f32["fused_block_tail"] = ops.fused_block_tail(*tail32, P_DROP, SEED)
     f32["fused_block_tail_bwd"] = torch.cat(
         [t.flatten() for t in ops.fused_block_tail_bwd(*tail32, dy.float(), P_DROP, SEED)])
-    sha1 = {n: hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest() for n, t in f32.items()}
-    print(json.dumps({"root": root, "ms": ms, "fp32_sha1": sha1}), flush=True)
+    parts = sweep_parts(table, ids, deltas)
+    fp32_sha1 = {n: sha1(t) for n, t in f32.items()}
+    fp32_sha1["sweep_rows_add_fp32"] = sweep32_sha1
+    print(json.dumps({"root": root, "ms": ms, "fp32_sha1": fp32_sha1,
+                      "bf16_sha1": bf16_sha1, "sweep_parts_ms": parts}), flush=True)
     return 0
 
 

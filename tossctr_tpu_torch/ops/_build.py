@@ -62,8 +62,8 @@ SIGNATURES = {
                       [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),
     "fused_ffn": ("tossctr_fused_ffn_fwd", [_P] * 6 + [_I] * 3 + _DROP + [_I, _I, _P]),
     "fused_ffn_bwd": ("tossctr_fused_ffn_bwd", [_P] * 8 + [_I] * 4 + _DROP + [_I, _I, _P]),
-    # the tables as a host array of device pointers
-    "sweep_rows_add": ("tossctr_sweep_rows_add", [_P, _I] + [_P] * 5 + [_I] * 5 + [_P]),
+    # the tables and the deltas as host arrays of device pointers
+    "sweep_rows_add": ("tossctr_sweep_rows_add", [_P, _P, _I] + [_P] * 5 + [_I] * 6 + [_P]),
     # a NULL block list sweeps every block
     "table_sweep": ("tossctr_table_sweep", [_P, _L, _I, _F, _P, _I, _I, _P]),
     "dropout_dump": ("tossctr_dropout_dump", [_P] + [_I] * 4 + _DROP + [_I, _P]),
@@ -139,17 +139,21 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def build_variant(name: str, subs, tag: str):
+def build_variant(name: str, subs, tag: str, source: Optional[Path] = None):
     """``name``'s library built from a copy of the sources with ``subs``
     applied ([(file, text, replacement)]: the first match of each text is
     replaced, a text not found raises), under ``build/kernels/<tag>/``: a
     probe times a kernel with a part changed or taken out against the
     kernel as built; ptxas's report lands beside it as
-    ``<name>.ptxas.txt``.  -> its C entry point, with the argument types
+    ``<name>.ptxas.txt``.  ``source``, where given, takes the place of
+    ``<name>.cu`` in the copy (another design with the same entry point)
+    before the subs.  -> its C entry point, with the argument types
     declared."""
     d = BUILD_DIR / tag
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(CSRC, d)
+    if source is not None:
+        shutil.copyfile(source, d / f"{name}.cu")
     for f, old, new in subs:
         src = (d / f).read_text()
         if old not in src:

@@ -10,10 +10,14 @@ AdaGrad step built on it (``train.table_update: sweep``) is
 ``train/sparse_embed.rowwise_adagrad_update(sweep=True)``.
 
 The wrapper does outside the kernel what the JAX wrapper does outside its
-``pallas_call``: it maps out-of-range ids to the sentinel V, sorts the ids
-once (stable), packs the deltas cast to the table dtype in sorted order,
-and finds with ``torch.searchsorted`` the end of the run of equal ids at
-the end of each piece of sorted positions the kernel's warps walk.
+``pallas_call``: it maps out-of-range ids to the sentinel V and sorts the
+ids once (stable, ``sort_ids``), and finds with ``torch.searchsorted``
+the end of the run of equal ids at the end of each piece of sorted
+positions the kernel's warps walk (``piece_ends``).  The deltas go to the
+kernel as the caller made them, (N, D) contiguous, fp32 or the table
+dtype: the kernel reads each through the sort's permutation and casts it
+itself (``launch_sorted``), so the CUDA path never writes a sorted or
+cast copy of them.
 """
 
 from __future__ import annotations
@@ -44,12 +48,18 @@ def _check(tables, ids, deltas) -> Tuple[int, int, int]:
     return V, D, N
 
 
-def _sorted_updates(tables, ids, deltas, V, D, N):
-    """-> (ids (N,) int32 sorted, out-of-range ones as V; the deltas cast to
-    the table dtype, packed (N, n_tables * D) in that order)."""
+def _sorted_ids(ids, V):
+    """-> (ids (N,) int32 sorted stably, out-of-range ones as V; the sort's
+    permutation (N,) int64)."""
     ids = ids.reshape(-1).to(torch.int32)
-    ids = torch.where((ids >= 0) & (ids < V), ids, torch.full_like(ids, V))
-    ids_s, order = torch.sort(ids, stable=True)
+    # -1 and V both become V: (-1) mod (V + 1) == V
+    return torch.sort(ids.clamp(-1, V).remainder(V + 1), stable=True)
+
+
+def _sorted_updates(tables, ids, deltas, V, D, N):
+    """-> (``_sorted_ids``' ids; the deltas cast to the table dtype, packed
+    (N, n_tables * D) in that order)."""
+    ids_s, order = _sorted_ids(ids, V)
     packed = torch.cat([d.reshape(N, D).to(tables[0].dtype) for d in deltas], dim=1)
     return ids_s, packed.index_select(0, order)
 
@@ -74,6 +84,61 @@ def sweep_rows_add_reference(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     return list(tables)
 
 
+def sort_ids(ids: torch.Tensor, V: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's sorted ids: -> (ids (N,) int32 sorted stably,
+    out-of-range ones as V; ``order`` (N,) int32, sorted position i holding
+    the caller's id ``order[i]``)."""
+    ids_s, order = _sorted_ids(ids, V)
+    return ids_s, order.to(torch.int32)
+
+
+def piece_ends(ids_s: torch.Tensor) -> torch.Tensor:
+    """For each piece of the kernel's walk (``tossctr_sweep_piece()`` sorted
+    positions), the end of the run of equal ids that holds its last
+    position -> (n_pieces,) int32."""
+    piece = load_library("sweep_rows_add").tossctr_sweep_piece()
+    last = ids_s[piece - 1::piece]
+    if ids_s.numel() % piece:  # a partial last piece
+        last = torch.cat([last, ids_s[-1:]])
+    return torch.searchsorted(ids_s, last, right=True, out_int32=True)
+
+
+def launch_sorted(tables, deltas, ids_s, order, seg_end, V: int, D: int) -> None:
+    """The kernel on ``sort_ids``' and ``piece_ends``' outputs (N > 0): the
+    deltas read where they lie, through ``order``."""
+    lib = load_library("sweep_rows_add")
+    n_pieces = seg_end.numel()
+    dev = ids_s.device
+    head, tail = (torch.empty(n_pieces, len(tables) * D, dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    tabs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
+    dels = (ctypes.c_void_p * len(deltas))(*(d.data_ptr() for d in deltas))
+    rc = lib.tossctr_sweep_rows_add(
+        tabs, dels, len(tables), ids_s.data_ptr(), order.data_ptr(), seg_end.data_ptr(),
+        head.data_ptr(), tail.data_ptr(), ids_s.numel(), V, D, DTYPE_CODES[tables[0].dtype],
+        DTYPE_CODES[deltas[0].dtype], dev.index, stream_of(ids_s),
+    )
+    check_launch(lib, rc, "sweep_rows_add")
+    sweep_rows_add.launches += 1
+
+
+def _check_kernel_layout(tables, deltas, D: int) -> None:
+    """Raise on what the kernel does not take: it reads four elements a lane
+    from each table row and each delta row."""
+    dt = tables[0].dtype
+    if D % 4 or len(tables) > 8:
+        raise ValueError(f"sweep_rows_add kernel takes D % 4 == 0 and at most 8 tables; "
+                         f"got D={D}, {len(tables)} tables")
+    ddt = deltas[0].dtype
+    if ddt not in (torch.float32, dt) or any(d.dtype != ddt for d in deltas):
+        raise TypeError(f"sweep_rows_add kernel takes deltas of one dtype, float32 or the "
+                        f"tables' {dt}; got {[d.dtype for d in deltas]}")
+    for x in (*tables, *deltas):
+        if not x.is_contiguous() or x.data_ptr() % (4 * x.element_size()):
+            raise ValueError("sweep_rows_add kernel takes contiguous tables and deltas "
+                             "aligned to four elements")
+
+
 @torch.no_grad()
 def sweep_rows_add(tables: Sequence[torch.Tensor], ids: torch.Tensor,
                    deltas: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -83,35 +148,18 @@ def sweep_rows_add(tables: Sequence[torch.Tensor], ids: torch.Tensor,
     (N, D) cast to the table dtype before the sum.  -> the tables.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  The kernel adds without atomics: it repeats bit for bit."""
+    raise.  The kernel takes the deltas contiguous, all float32 or all in
+    the table dtype.  It adds without atomics: it repeats bit for bit."""
     V, D, N = _check(tables, ids, deltas)
     if ids.device.type == "cpu":
         return sweep_rows_add_reference(tables, ids, deltas)
     if ids.device.type != "cuda":
         raise RuntimeError(f"sweep_rows_add: unsupported device {ids.device}")
-    if not all(t.is_contiguous() for t in tables):
-        raise ValueError("sweep_rows_add: the tables must be contiguous")
-    if D % 4 or len(tables) > 8:
-        raise ValueError(f"sweep_rows_add kernel takes D % 4 == 0 and at most 8 tables; "
-                         f"got D={D}, {len(tables)} tables")
+    _check_kernel_layout(tables, deltas, D)
     if N == 0:
         return list(tables)
-    lib = load_library("sweep_rows_add")
-    ids_s, packed = _sorted_updates(tables, ids, deltas, V, D, N)
-    piece = lib.tossctr_sweep_piece()
-    n_pieces = -(-N // piece)
-    last = torch.clamp(torch.arange(1, n_pieces + 1, device=ids.device) * piece - 1, max=N - 1)
-    seg_end = torch.searchsorted(ids_s, ids_s[last], right=True).to(torch.int32)
-    head, tail = (torch.empty(n_pieces, packed.shape[1], dtype=torch.float32, device=ids.device)
-                  for _ in range(2))
-    ptrs = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
-    rc = lib.tossctr_sweep_rows_add(
-        ptrs, len(tables), ids_s.data_ptr(), packed.data_ptr(), seg_end.data_ptr(),
-        head.data_ptr(), tail.data_ptr(), N, V, D, DTYPE_CODES[tables[0].dtype],
-        ids.device.index, stream_of(ids),
-    )
-    check_launch(lib, rc, "sweep_rows_add")
-    sweep_rows_add.launches += 1
+    ids_s, order = sort_ids(ids, V)
+    launch_sorted(tables, deltas, ids_s, order, piece_ends(ids_s), V, D)
     return list(tables)
 
 
