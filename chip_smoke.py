@@ -22,7 +22,9 @@
    the build, ``fused_mha_qkv``'s forward's included) and,
    where the toolkit has ``cuobjdump``, the HMMA / HGMMA instructions in
    its SASS (a bf16 tensor-core kernel without them fails; the block
-   tail pair's are on the tensor cores too).  Beside
+   tail pair's and the FM-cross pair's are on the tensor cores too; the
+   FM pair's rows also give the plain einsum path's time beside their
+   own).  Beside
    them: the four attention kernels at the larger-K configs' shapes (K =
    120 at B = 8192, K = 152 at B = 4096), with their PyTorch yardsticks
    at those shapes; and
@@ -233,17 +235,18 @@ def mha_bwd_flops(B, K, D):
     return 10 * B * K * K * D
 
 
-def tensor_core_rows(results, flops, need_mma=True):
+def tensor_core_rows(results, flops, need_mma=True, libs=None):
     """Log each named row's TFLOP/s and share of its bound, and attach the
     build report of its library (``tensor_core_report``; ``need_mma``
-    False for a library whose bf16 kernel runs on the CUDA cores)."""
+    False for a library whose bf16 kernel runs on the CUDA cores; ``libs``
+    names a row's library where the row is named otherwise)."""
     for name, n in flops.items():
         r = results[name]
         log(f"[kernel] {name} bf16: {n / r['ms'] * 1e-9:.4f} TFLOP/s, "
             f"{r['bound_ms'] / r['ms']:.2%} of the bound ({r['ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}); library call "
             + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms") + ")")
-        r["build"] = tensor_core_report(name, need_mma)
+        r["build"] = tensor_core_report((libs or {}).get(name, name), need_mma)
 
 
 def check_close(name, got, want, band):
@@ -891,12 +894,15 @@ def fm_kernel_rows(cfg, dev, g):
         fm_cross_pallas_bwd_reference,
         fm_cross_pallas_reference,
     )
-    from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd
+    from tossctr_tpu_torch.ops.fm_cross import fm_cross_pallas_fwd, fm_mma_kernel
 
     qa = cfg.model.qnn_alpha
     B, D = cfg.train.batch_size, cfg.model.emb_dim
     F = 1 + 2 * N_NUM + len(cfg.data.cat_cols)
     H, R, P = qa.heads, qa.rank, qa.proj_dim
+    if not fm_mma_kernel(torch.bfloat16, D, H, R, P):
+        raise AssertionError(f"the flagship's QNN shape (D={D} H={H} R={R} P={P}) does not "
+                             f"route to the FM tensor-core kernels")
     out, errs = {}, {}
 
     def inputs(dtype):
@@ -928,7 +934,8 @@ def fm_kernel_rows(cfg, dev, g):
     zb = 2
     flops_a = 2 * B * F * D * H * R
     fwd_bytes = zb * (z.numel() + U.numel() + V.numel() + B * H * P)
-    b_ms, b_by = bound_ms(fwd_bytes, flops_a + 3 * B * F * H * R + 2 * B * H * R * P)
+    fwd_flops = flops_a + 3 * B * F * H * R + 2 * B * H * R * P
+    b_ms, b_by = bound_ms(fwd_bytes, fwd_flops)
     out["fm_cross_pallas"] = dict(
         name="fm_cross_pallas", route="cuda", source="tossctr_tpu_torch/csrc/fm_cross.cu",
         replaces="tossctr_tpu/ops/pallas_kernels.py:147",
@@ -941,7 +948,8 @@ def fm_kernel_rows(cfg, dev, g):
     )
     bwd_bytes = zb * (2 * z.numel() + U.numel() + V.numel() + gr.numel()) + 4 * (
         U.numel() + V.numel())
-    b_ms, b_by = bound_ms(bwd_bytes, 3 * flops_a + 4 * B * H * R * P + 6 * B * F * H * R)
+    bwd_flops = 3 * flops_a + 4 * B * H * R * P + 6 * B * F * H * R
+    b_ms, b_by = bound_ms(bwd_bytes, bwd_flops)
     zl, Ul, Vl = (t.detach().requires_grad_() for t in (z, U, V))
     ref_out = fm_cross_multihead(zl, Ul, Vl)
     out["fm_cross_pallas_bwd"] = dict(
@@ -956,6 +964,12 @@ def fm_kernel_rows(cfg, dev, g):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
     del z, U, V, gr, zl, Ul, Vl, ref_out
+    tensor_core_rows(out, {"fm_cross_pallas": fwd_flops, "fm_cross_pallas_bwd": bwd_flops},
+                     libs={"fm_cross_pallas": "fm_cross", "fm_cross_pallas_bwd": "fm_cross_bwd"})
+    for r in out.values():
+        log(f"[kernel] {r['name']} bf16: {r['bound_ms'] / r['ms']:.2%} of the bound; the plain "
+            f"einsum path (fm_cross_multihead{', autograd' if 'bwd' in r['name'] else ''}) "
+            f"{r['multihead_ms']:.4f} ms, {r['multihead_ms'] / r['ms']:.2f}x the kernel's time")
     # the autograd wrapper's backward is the kernel
     z, U, V, gr = (t.requires_grad_(i < 3) for i, t in enumerate(inputs(torch.bfloat16)))
     before = fm_cross_pallas_bwd.launches

@@ -35,7 +35,12 @@ weights in panels), rows that fill no whole tile, several persistent
 walks, its backward at grids of 1 and 7 blocks (dx and do bit-equal to
 the default grid's) and through autograd; the FM-cross pair runs at the
 flagship's QNN shapes and at ragged ones (B, F, D and H*R not multiples
-of the kernels' 4-wide tiles); ``sweep_rows_add`` on one and two
+of the CUDA-core kernels' 4-wide tiles), and its bf16 tensor-core pair
+at the edges of its tiling: B not a multiple of its 8-row groups (67,
+8192 + 37), F not a multiple of its 16-row m-tiles (5, 8, 17, 24, 200),
+R = 8 (a k8 step; H*R = 128) and 32, D = 16, 24 (padded to 32) and 48,
+H*R padded to a multiple of 16, P not a multiple of 8, and at grids of
+1 and 3 blocks (out and dz bit-equal to the default grid's); ``sweep_rows_add`` on one and two
 tables (each with its own delta tensor) with duplicates, out-of-range
 ids, uniform and zipf ids and one id hot across many of the kernel's
 64-position pieces, N not a multiple of a piece, fp32 deltas and (on
@@ -477,6 +482,24 @@ def test_cuda_kernels_match_plain_versions():
             close(name, dtype, dgot[i], want[i], activation=i == 0)
             assert torch.equal(dgot[i], again[i]), f"{name} changed between two calls"
 
+    def fm_grids(dtype, *shape):
+        """The pair at a grid of a few blocks: out and dz bit-equal to the
+        default grid's, dU within 1e-5 (its per-block partials regroup),
+        dV bit-equal (its row chunks do not depend on the grid), all
+        within the bands of the plain versions."""
+        z, U, V, g = fm_args(dtype, *shape)
+        runs = {b: (fm_cross_pallas_fwd_only(z, U, V, blocks=b),
+                    *fm_cross_pallas_bwd(z, U, V, g, blocks=b)) for b in (None, 1, 3)}
+        torch.cuda.synchronize()
+        want = (fm_cross_pallas_reference(z, U, V), *fm_cross_pallas_bwd_reference(z, U, V, g))
+        for blocks, got in runs.items():
+            for i, name in enumerate(("out", "dz", "dU", "dV")):
+                close(f"{name} at {blocks} blocks", dtype, got[i], want[i], activation=i < 2)
+                if i == 2:
+                    close(f"dU at {blocks} blocks", "f32", got[i], runs[None][i])
+                else:
+                    assert torch.equal(got[i], runs[None][i]), f"{name} at {blocks} blocks"
+
     def fm_cross_autograd(dtype, *shape):
         """fm_cross_pallas's backward is the kernel, dU and dV in U's and V's dtypes."""
         z, U, V, g = fm_args(dtype, *shape)
@@ -737,9 +760,18 @@ def test_cuda_kernels_match_plain_versions():
                    P_DROP)
         checks.run(f"ffn autograd {dtype}", ffn_autograd, dtype, 130, 64, 384, P_DROP)
         # (B, F, D, H, R, P): the flagship's QNN at a ragged batch, a ragged
-        # shape of every dimension, a single row
-        for shape in ((67, 200, 64, 6, 16, 192), (5, 13, 10, 3, 5, 7), (1, 8, 16, 2, 4, 8)):
+        # shape of every dimension, a single row (R = 4: the CUDA-core
+        # pair in bf16 too); then the bf16 tensor-core pair's edges: the
+        # flagship at 8192 + 37 rows, F = 8, 24 and 17, R = 8 with H*R =
+        # 128 and P = 12, R = 32 at D = 48 and P = 20, F = 5 (one m-tile)
+        # at D = 24 with H*R = 24 (both padded)
+        for shape in ((67, 200, 64, 6, 16, 192), (5, 13, 10, 3, 5, 7), (1, 8, 16, 2, 4, 8),
+                      (8192 + 37, 200, 64, 6, 16, 192), (9, 8, 64, 6, 16, 192),
+                      (13, 24, 32, 4, 16, 32), (37, 40, 16, 16, 8, 12), (29, 24, 48, 4, 32, 20),
+                      (19, 17, 64, 2, 8, 36), (3, 5, 24, 3, 8, 8)):
             checks.run(f"fm cross {dtype} {shape}", fm_cross, dtype, *shape)
+        for shape in ((67, 200, 64, 6, 16, 192), (37, 40, 16, 16, 8, 12)):
+            checks.run(f"fm cross grids {dtype} {shape}", fm_grids, dtype, *shape)
         checks.run(f"fm cross autograd {dtype}", fm_cross_autograd, dtype, 9, 16, 16, 2, 4, 8)
     # the block tail pair (bf16 on the tensor cores, fp32 on the CUDA
     # cores) at every padded width (D = 16, 24 -> 32, 48, 64), hidden

@@ -15,6 +15,10 @@
     of the largest magnitude, one bf16 ulp of a term of their sums.
 
 * the autograd wrapper on a CPU tensor runs exactly the plain versions;
+* ``fm_mma_kernel``, the rule by which the wrapper sends a shape to the
+  tensor-core kernels or the CUDA-core ones on the card: bf16 only, D and
+  R multiples of 8, P of 4, both kernels' shared memory (``fm_mma_smem``,
+  the flagship's 108,688 and 227,984 bytes) within a block's;
 * ``QNNAlpha``'s dispatch: block grouping takes ``fm_cross_blocked``,
   ``use_pallas`` with F % 8 == 0 the kernel path, F % 8 != 0 the plain
   einsum path;
@@ -68,6 +72,7 @@ def test_fm_cross_matches_pallas():
         fm_cross_pallas_bwd_reference,
         fm_cross_pallas_reference,
     )
+    from tossctr_tpu_torch.ops.fm_cross import fm_mma_kernel, fm_mma_smem
 
     def inputs(B, F, D, Hh, R, P, seed=2):
         rng = np.random.default_rng(seed)
@@ -101,6 +106,23 @@ def test_fm_cross_matches_pallas():
         for leaf, want in zip(leaves, tgrads):
             assert leaf.grad.dtype == leaf.dtype
             assert torch.equal(leaf.grad, want.to(leaf.dtype))
+
+    def mma_rule():
+        bf, f32 = torch.bfloat16, torch.float32
+        assert fm_mma_smem(64, 6, 16, 192) == (108688, 227984)  # the flagship's QNN
+        for D, Hh, R, P, want in (
+            (64, 6, 16, 192, True),  # the flagship
+            (16, 16, 8, 12, True),  # R = 8, H*R = 128, P not a multiple of 8
+            (48, 4, 32, 20, True),  # R = 32, D = 48
+            (8, 2, 8, 4, True),  # the smallest
+            (10, 3, 5, 7, False),  # ragged D, R and P: the CUDA-core pair
+            (16, 2, 4, 8, False),  # R = 4
+            (24, 2, 8, 6, False),  # P % 4 != 0
+            (12, 2, 8, 8, False),  # D % 8 != 0
+            (64, 16, 8, 192, False),  # the g tile and V past a block's shared memory
+        ):
+            assert fm_mma_kernel(bf, D, Hh, R, P) is want, (D, Hh, R, P)
+            assert not fm_mma_kernel(f32, D, Hh, R, P)
 
     def dispatch():
         calls = []
@@ -170,6 +192,7 @@ def test_fm_cross_matches_pallas():
         for dtype in ("f32", "bf16"):
             checks.run(f"kernel pair {dtype} B=10", kernel_pair, dtype, 10, 16, 16, 2, 4, 8)
         checks.run("kernel pair f32 F=13 D=12 H=3 R=5 P=7", kernel_pair, "f32", 9, 13, 12, 3, 5, 7)
+        checks.run("tensor-core routing rule", mma_rule)
         checks.run("QNNAlpha dispatch", dispatch)
         checks.run("CTRModel with use_pallas_fm vs JAX", model_vs_jax)
     checks.done()

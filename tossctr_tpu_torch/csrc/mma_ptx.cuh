@@ -81,6 +81,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// 16 bytes global -> shared, asynchronous, past L1; zeros where !ok
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
 // 8 bytes global -> shared, asynchronous; zeros where !ok
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),

@@ -9,8 +9,9 @@ one call on one card to hold them against each other:
 Prints the card's name and power limit, then one JSON line: {"root": ...,
 "ms": {row: ms}, "fp32_sha1": {row: digest}, "bf16_sha1": {row: digest},
 "sweep_parts_ms": {part: ms}}.  The fp32 digests are those of the fp32
-outputs (the CUDA-core kernels) of the two attention forwards and of the
-block tail's forward and backward on the same inputs, and of the (10M,
+outputs (the CUDA-core kernels) of the two attention forwards, of the
+block tail's forward and backward and of the FM-cross forward and
+backward (dz, dU, dV) on the same inputs, and of the (10M,
 128) fp32 table after one ``sweep_rows_add``; the bf16 ones those of the
 (10M, 128) bf16 table after one ``sweep_rows_add``, one ``dense_sweep``
 or one ``sparse_sweep`` (W = 1024, the blocks the update's ids touch);
@@ -191,6 +192,11 @@ def main(argv=None) -> int:
     f32["fused_block_tail"] = ops.fused_block_tail(*tail32, P_DROP, SEED)
     f32["fused_block_tail_bwd"] = torch.cat(
         [t.flatten() for t in ops.fused_block_tail_bwd(*tail32, dy.float(), P_DROP, SEED)])
+    zf, Uf, Vf = z.float(), U.float(), V.float()
+    f32["fm_cross_pallas"] = fm_cross_pallas_fwd(zf, Uf, Vf)
+    f32["fm_cross_pallas_bwd"] = torch.cat(
+        [t.flatten().float() for t in ops.fm_cross_pallas_bwd(zf, Uf, Vf, gz.float())])
+    del zf, Uf, Vf
     parts = sweep_parts(table, ids, deltas)
     fp32_sha1 = {n: sha1(t) for n, t in f32.items()}
     fp32_sha1["sweep_rows_add_fp32"] = sweep32_sha1

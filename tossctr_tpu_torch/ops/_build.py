@@ -55,8 +55,9 @@ SIGNATURES = {
                           [_P] * 8 + [_I] * 5 + [_F] + _DROP + [_I, _I, _I, _P]),
     "fused_block_tail_bwd": ("tossctr_fused_block_tail_bwd",
                              [_P] * 15 + [_I] * 4 + _DROP + [_I, _I, _P]),
-    "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I, _P]),
-    "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I, _I, _P]),
+    # the FM pair: blocks (forward) and whether to run the tensor-core kernel
+    "fm_cross": ("tossctr_fm_cross_fwd", [_P] * 4 + [_I] * 6 + [_I, _I] + [_I, _I, _P]),
+    "fm_cross_bwd": ("tossctr_fm_cross_bwd", [_P] * 9 + [_I] * 8 + [_I] + [_I, _I, _P]),
     "fused_mha": ("tossctr_fused_mha_fwd", [_P] * 5 + [_I] * 4 + [_F] + _DROP + [_I] * 4 + [_P]),
     "fused_mha_bwd": ("tossctr_fused_mha_bwd",
                       [_P] * 10 + [_I] * 5 + [_F] + _DROP + [_I, _I, _P]),

@@ -9,12 +9,15 @@ without forming F^2 pairs, then quad @ V_h.
   (A in the compute dtype), what the model runs without
   ``model.extra.use_pallas_fm``.
 * ``fm_cross_pallas``: the kernel path.  Its kernels are
-  ``csrc/fm_cross.cu`` (forward) and ``csrc/fm_cross_bwd.cu`` (backward);
-  ``fm_cross_pallas_reference`` and ``fm_cross_pallas_bwd_reference`` are
-  the plain PyTorch versions with the Pallas kernels' rounding points
-  (A, its sums and quad in fp32; quad rounded to V's dtype before the V
-  product in the forward and not in the backward), used for CPU tensors
-  and to check the kernels on the card.  ``fm_cross_pallas`` is
+  ``csrc/fm_cross.cu`` (forward) and ``csrc/fm_cross_bwd.cu`` (backward),
+  each in two forms: on the tensor cores for bf16 at the shapes
+  ``fm_mma_kernel`` names, on the CUDA cores for fp32 and every other
+  shape; ``fm_cross_pallas_reference`` and
+  ``fm_cross_pallas_bwd_reference`` are the plain PyTorch versions with
+  the Pallas kernels' rounding points (A, its sums and quad in fp32;
+  quad rounded to V's dtype before the V product in the forward and not
+  in the backward), used for CPU tensors and to check the kernels on the
+  card.  ``fm_cross_pallas`` is
   differentiable: its backward is ``fm_cross_pallas_bwd``.
 """
 
@@ -28,6 +31,40 @@ from ._build import DTYPE_CODES, check_launch, load_library, persistent_blocks, 
 
 MAX_D = 64  # the kernels' limits (csrc/fm_cross.cuh)
 MAX_C = 128  # H * R
+# the tensor-core kernels' shared memory (csrc/fm_mma.cuh): 8 warps, one
+# batch row each, the z ring's stages, and a block's limit on an H100
+_MMA_WARPS, _MMA_FWD_STAGES, _MMA_BWD_STAGES = 8, 3, 2
+_MMA_SMEM_LIMIT = 232448
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fm_mma_smem(D: int, H: int, R: int, P: int) -> Tuple[int, int]:
+    """Shared memory (bytes) of the forward and the backward tensor-core
+    kernels at this shape, as csrc/fm_mma.cuh FwdLayout and BwdLayout lay
+    it out (bf16 tiles with rows 8 elements longer than their data)."""
+    W, C, DP, CP, PP = _MMA_WARPS, H * R, _r16(D), _r16(H * R), _r16(P)
+    ldz, ldc, ldv = DP + 8, CP + 8, PP + 8
+    weights = 2 * (DP * ldc + C * ldv)
+    fwd = weights + 2 * (_MMA_FWD_STAGES * W * 16 * ldz + W * ldc) + 16
+    ring = weights + 2 * 2 * _MMA_BWD_STAGES * W * 16 * ldz  # a stage: two tiles (the sweeps)
+    staged = 2 * (W * 16 * (DP + 2 * CP) + DP * CP)  # z, U, dA's halves, canonical, aligned
+    bwd = -(-ring // 128) * 128 + staged + 2 * W * (H * PP + 8) + 2 * 4 * W * CP + 16
+    return fwd, bwd
+
+
+def fm_mma_kernel(dtype, D: int, H: int, R: int, P: int) -> bool:
+    """Whether fm_cross_pallas's forward and backward of this dtype and
+    shape run their tensor-core kernels on the card: bf16, D and R
+    multiples of 8 (16-byte pieces of z's rows; whole n8 tiles of each
+    head's columns), P a multiple of 4 (8-byte pieces of g's rows), D <=
+    64, H*R <= 128, and both kernels' shared memory within a block's.
+    Every other shape the kernels take runs the CUDA-core pair."""
+    return (dtype == torch.bfloat16 and 8 <= D <= MAX_D and D % 8 == 0 and R % 8 == 0
+            and H * R <= MAX_C and P % 4 == 0
+            and max(fm_mma_smem(D, H, R, P)) <= _MMA_SMEM_LIMIT)
 
 
 def fm_cross_multihead(z: torch.Tensor, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -117,30 +154,62 @@ def _cuda_args(name, tensors):
                          f"got B={B} D={D} H*R={H * R}")
 
 
-def fm_cross_pallas_fwd(z, U, V):
-    """The forward alone (no autograd): the kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+def launch_fwd(fn, z, U, V, blocks=None):
+    """-> (rc, out): one call of the forward's C entry point ``fn`` (the
+    built library's, or a probe's variant of it) on checked CUDA tensors."""
+    B, F, D = z.shape
+    H, R, P = V.shape
+    out = torch.empty(B, H * P, dtype=z.dtype, device=z.device)
+    rc = fn(z.data_ptr(), U.data_ptr(), V.data_ptr(), out.data_ptr(), B, F, D, H, R, P,
+            int(blocks or 0), int(fm_mma_kernel(z.dtype, D, H, R, P)), DTYPE_CODES[z.dtype],
+            z.device.index, stream_of(z))
+    return rc, out
+
+
+def launch_bwd(fn, z, U, V, g, blocks=None):
+    """-> (rc, (dz, dU, dV)): one call of the backward's C entry point
+    ``fn`` on checked CUDA tensors, its scratch and outputs allocated."""
+    B, F, D = z.shape
+    H, R, P = V.shape
+    blocks = persistent_blocks(z, blocks=blocks)
+    chunks = min(B, 64)
+    n_u, n_v = H * D * R, H * R * P
+    f32 = dict(dtype=torch.float32, device=z.device)
+    dz = torch.empty_like(z)
+    scratch = torch.empty(B * H * R + blocks * n_u + chunks * n_v, **f32)
+    quad, part_u, part_v = scratch.split([B * H * R, blocks * n_u, chunks * n_v])
+    grads = torch.empty(n_u + n_v, **f32)
+    rc = fn(z.data_ptr(), U.data_ptr(), V.data_ptr(), g.data_ptr(), dz.data_ptr(),
+            quad.data_ptr(), part_u.data_ptr(), part_v.data_ptr(), grads.data_ptr(), blocks,
+            chunks, B, F, D, H, R, P, int(fm_mma_kernel(z.dtype, D, H, R, P)),
+            DTYPE_CODES[z.dtype], z.device.index, stream_of(z))
+    dU, dV = grads.split([n_u, n_v])
+    return rc, (dz, dU.view(H, D, R), dV.view(H, R, P))
+
+
+def fm_cross_pallas_fwd(z, U, V, blocks=None):
+    """The forward alone (no autograd): the kernel on a CUDA tensor (the
+    tensor-core one where ``fm_mma_kernel`` says so), the plain version on
+    a CPU tensor.  ``blocks`` caps the kernel's persistent grid (default:
+    as many blocks as fit on the SMs); the output does not depend on it."""
     _check(z, U, V)
     if z.device.type == "cpu":
         return fm_cross_pallas_reference(z, U, V)
     _cuda_args("fm_cross_pallas", (z, U, V))
-    B, F, D = z.shape
-    H, R, P = V.shape
-    out = torch.empty(B, H * P, dtype=z.dtype, device=z.device)
     lib = load_library("fm_cross")
-    rc = lib.tossctr_fm_cross_fwd(z.data_ptr(), U.data_ptr(), V.data_ptr(), out.data_ptr(),
-                                  B, F, D, H, R, P, DTYPE_CODES[z.dtype], z.device.index,
-                                  stream_of(z))
+    rc, out = launch_fwd(lib.tossctr_fm_cross_fwd, z, U, V, blocks)
     check_launch(lib, rc, "fm_cross_pallas")
     fm_cross_pallas.launches += 1
     return out
 
 
-def fm_cross_pallas_bwd(z, U, V, g):
+def fm_cross_pallas_bwd(z, U, V, g, blocks=None):
     """-> (dz, dU, dV), the last two fp32 sums over the batch: the kernel
-    on a CUDA tensor (per-block and per-chunk fp32 partials reduced in a
-    fixed order, so the result repeats bit for bit), the plain version on
-    a CPU tensor."""
+    on a CUDA tensor (the tensor-core one where ``fm_mma_kernel`` says so;
+    per-block and per-chunk fp32 partials reduced in a fixed order, so the
+    result repeats bit for bit), the plain version on a CPU tensor.
+    ``blocks``: the persistent grid (default one block an SM); dz and dV
+    do not depend on it, dU's partials regroup."""
     _check(z, U, V)
     B = z.shape[0]
     H, R, P = V.shape
@@ -150,25 +219,11 @@ def fm_cross_pallas_bwd(z, U, V, g):
     if z.device.type == "cpu":
         return fm_cross_pallas_bwd_reference(z, U, V, g)
     _cuda_args("fm_cross_pallas_bwd", (z, U, V, g))
-    _, F, D = z.shape
     lib = load_library("fm_cross_bwd")
-    blocks = persistent_blocks(z)
-    chunks = min(B, 64)
-    n_u, n_v = H * D * R, H * R * P
-    f32 = dict(dtype=torch.float32, device=z.device)
-    dz = torch.empty_like(z)
-    scratch = torch.empty(B * H * R + blocks * n_u + chunks * n_v, **f32)
-    quad, part_u, part_v = scratch.split([B * H * R, blocks * n_u, chunks * n_v])
-    grads = torch.empty(n_u + n_v, **f32)
-    rc = lib.tossctr_fm_cross_bwd(
-        z.data_ptr(), U.data_ptr(), V.data_ptr(), g.data_ptr(), dz.data_ptr(), quad.data_ptr(),
-        part_u.data_ptr(), part_v.data_ptr(), grads.data_ptr(), blocks, chunks,
-        B, F, D, H, R, P, DTYPE_CODES[z.dtype], z.device.index, stream_of(z),
-    )
+    rc, grads = launch_bwd(lib.tossctr_fm_cross_bwd, z, U, V, g, blocks)
     check_launch(lib, rc, "fm_cross_pallas_bwd")
     fm_cross_pallas_bwd.launches += 1
-    dU, dV = grads.split([n_u, n_v])
-    return dz, dU.view(H, D, R), dV.view(H, R, P)
+    return grads
 
 
 class _FMCross(torch.autograd.Function):
