@@ -90,8 +90,13 @@
    step against the CPU and against the plain versions on the card.
 9. K = 120 phase: ``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120,
    4 layers, S1 query): timed steps through the encoder kernels at K =
-   120, the weights served from a fold checkpoint through ``infer_main``,
-   held against the CPU plain path within 0.02.
+   120, the fp32 512-row step against the CPU and the plain versions, the
+   weights served from a fold checkpoint through ``infer_main``, held
+   against the CPU plain path within 0.02.  Then the K = 148 phase:
+   ``cfgs/v3_k148_s1_tpu.yaml`` at full width (K = 152 padded, B = 4096,
+   4 layers): timed steps with their launch counts and profile, and the
+   bf16 512-row step against the CPU and, with the ReLUs pinned and the
+   witness's bands, against the plain versions on the card.
 10. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
    card runs it in its module: ``MultiHeadSelfAttention`` with
    ``fuse_qkv`` off (qkv Dense, ``fused_mha``) against ``fuse_qkv`` on
@@ -200,13 +205,24 @@ WITNESS_SEED = 20261
 WITNESS_CAP = 0.02
 _HELD = ("loss", "grads", "grad_tensor", "accum", "delta")
 CHECK_BANDS = {
-    "bf16": dict(select=0.999, same_order=0.3, same_relu=None, pinned=True,
+    "bf16": dict(select=0.999, same_order=0.3, same_relu=None, pinned=True, witness="each",
                  vs_cpu=dict(zip(_HELD, (1e-3, 3e-2, 8e-2, 5e-2, 6e-2))),
                  vs_plain=dict(zip(_HELD, (5e-4, 6e-3, None, None, 2.5e-2)))),
     "none": dict(select=0.999, same_order=0.999, same_relu=0.99, pinned=False,
                  vs_cpu=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4))),
                  vs_plain=dict(zip(_HELD, (1e-6, 2e-6, 1e-5, 1e-5, 1e-4)))),
 }
+# The K = 148 phase's bf16 check.  A row's ordered selection has 148 slots
+# there (the flagship's 60), so fewer rows keep their order on both sides
+# (same_order).  And the step's distance from the plain step is that of
+# its four RMS encoder kernels each summing in another order at once: at
+# K = 148 the qkv forward alone on the card moves the accumulator past the
+# largest one-kernel witness, with the qkv backward's tensor-core kernel
+# or its key-tiled one alike (``exp/step_kernel_split.py``), so the
+# witness with all four kernels' outputs nudged together joins the four
+# one-kernel ones (witness "all").  The negative controls run on these
+# bands too.
+K148_BANDS = dict(CHECK_BANDS["bf16"], same_order=0.2, witness="all")
 
 
 def bf16_tolerance(ref) -> float:
@@ -459,7 +475,7 @@ def kernel_phase(cfg, dev):
             f" ms{extra}")
         for row in r.get("large_k", []):
             log(f"[kernel] {r['name']} K={row['K']} B={row['B']}: {row['ms']:.4f} ms"
-                + (f" (dropout off {row['ms_no_dropout']:.4f})" if "ms_no_dropout" in row else "")
+                + f" (dropout off {row['ms_no_dropout']:.4f})"
                 + f", plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}), yardstick {row['library_ms']:.4f} ms, "
                 f"max_abs_err {row['max_abs_err']:.6g}")
@@ -492,6 +508,8 @@ def large_k_rows(cfg, dev, g, results):
         fused_mha_qkv_reference,
         fused_mha_reference,
     )
+
+    from tossctr_tpu_torch.ops._build import ptxas_report
 
     bf, f32 = torch.bfloat16, torch.float32
     D, H = cfg.model.emb_dim, cfg.sequence.tfm.n_heads
@@ -565,8 +583,20 @@ def large_k_rows(cfg, dev, g, results):
                        plain_ms=cuda_time_ms(lambda: plain(*args, P_DROP, DROP_SEED), iters=3,
                                              warmup=1),
                        library_ms=cuda_time_ms(library[name], iters=10))
-            if fwd:
-                row["ms_no_dropout"] = cuda_time_ms(lambda: fn(*args), iters=10)
+            row["ms_no_dropout"] = cuda_time_ms(lambda: fn(*args), iters=10)
+            if not fwd:
+                row["tflops"] = n_flops / row["ms"] * 1e-9
+                row["share_of_bound"] = b_ms / row["ms"]
+                # ptxas's report of the instantiations at K's padding (KP = 160:
+                # the tensor-core form with dbias in device memory)
+                kp = -(-K // 16) * 16 if K > 128 else 128
+                row["build"] = {fn_: r for fn_, r in ptxas_report(name).items()
+                                if f"_mmaILi{kp}E" in fn_}
+                for fn_, r in row["build"].items():
+                    log(f"[kernel] {name} K={K} build {fn_}: {r['registers']} registers, spill "
+                        f"stores {r['spill_stores']} / loads {r['spill_loads']} bytes")
+                log(f"[kernel] {name} K={K} B={B}: {row['tflops']:.4f} TFLOP/s, "
+                    f"{row['share_of_bound']:.2%} of the bound")
             results[name].setdefault("large_k", []).append(row)
             torch.cuda.empty_cache()
         del bias, x, do, wqkv, bqkv, q, k, v, leaves, outs, library
@@ -1613,73 +1643,91 @@ def trained_steps(cfg, model, batches, n_steps, tag, expected, require_change=Tr
     return state, step, launches
 
 
-K120_STEPS = 3  # timed steps of the K = 120 phase, after 2 warm ones
+LARGE_K_STEPS = 3  # timed steps of the K = 120 and K = 148 phases, after 2 warm ones
 
 
-def k120_phase(tmp, dev):
-    """``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120, 4 encoder
-    layers, S1 query, B = 8192, the 10M-row table, random seeded weights):
-    train steps through the RMS encoder kernels at K = 120 (their
-    query-tiled forwards and key-tiled backwards), the fp32 512-row step
-    held against the CPU and against the plain versions on the card
-    (``train_reference_check``), the weights served from one fold
-    checkpoint through ``infer_main`` and held against the CPU plain path
-    within 0.02.  -> (launches of the timed steps, launches of
-    infer_main)."""
+def large_k_steps(d, tmp, dev, tag, seed):
+    """A larger-K config's mapping ``d`` at full width (4 encoder layers,
+    the 10M-row table, random seeded weights) over a synthetic train cache
+    of 4 batches: LARGE_K_STEPS train steps through the RMS encoder
+    kernels, timed after 2 warm ones, their launch counts held to 4 layers
+    x steps of each.  -> (cfg, train cache, model, state, step, the
+    batches, launches)."""
     import torch
 
     from tossctr_tpu_torch.config import Config
-    from tossctr_tpu_torch.config.flagship import v3_k120_config_dict
     from tossctr_tpu_torch.data import BatchIterator, ShardCache
     from tossctr_tpu_torch.data.synth import write_synth_cache_for
-    from tossctr_tpu_torch.eval.calibration import Calibrator, TemperatureScaler
-    from tossctr_tpu_torch.infer import infer_main
     from tossctr_tpu_torch.models import build_model, init_params
-    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
-    from tossctr_tpu_torch.train.checkpoint import save_fold_checkpoint
+    from tossctr_tpu_torch.ops import launch_counts
 
-    d = v3_k120_config_dict()
-    d["exp_name"] = "chip_k120"
-    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
-    cfg0 = Config.from_dict(copy.deepcopy(d))
-    B, n_layers = cfg0.train.batch_size, cfg0.sequence.tfm.n_layers
-    t0 = time.time()
-    train_man = write_synth_cache_for(cfg0, os.path.join(tmp, "cache", "k120_train"), 4 * B,
-                                      num_dim=N_NUM, seed=13)
-    d["data"]["manifest_test"] = write_synth_cache_for(
-        cfg0, os.path.join(tmp, "cache", "k120_test"), 2 * B, num_dim=N_NUM, seed=14)
     cfg = Config.from_dict(copy.deepcopy(d))
+    B, n_layers = cfg.train.batch_size, cfg.sequence.tfm.n_layers
+    t0 = time.time()
+    train_man = write_synth_cache_for(cfg, os.path.join(tmp, "cache", f"{tag}_train"), 4 * B,
+                                      num_dim=N_NUM, seed=seed)
     cache = ShardCache(train_man)
     model = init_params(build_model(cfg, cache.dims, dev), seed=2026)
     loader = BatchIterator(cache, batch_size=B, train=True, shuffle=True, seed=cfg.seed,
                            drop_last=cfg.train.drop_partial_batch)
     batches = [to_device(b, dev) for b in loader]
     torch.cuda.synchronize()
-    log(f"[k120] v3_k120_s1_tpu: K={cfg.sequence.top_k}, {n_layers} layers, query "
+    log(f"[{tag}] {cfg.exp_name}: K={cfg.sequence.top_k}, {n_layers} layers, query "
         f"{cfg.sequence.query_mode}, {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
         f"parameters, {len(batches)} batches of {B}, set-up {time.time() - t0:.1f} s")
-    expected = {k: n_layers * K120_STEPS if k in RMS_ENCODER else 0 for k in launch_counts()}
+    expected = {k: n_layers * LARGE_K_STEPS if k in RMS_ENCODER else 0 for k in launch_counts()}
     # the synthetic batches hold empty histories, whose gradients blow the
     # pre-clip norm up (ROADMAP queue 3): the clip can then scale every
     # gradient below what the parameters, the fp32 accumulator and the bf16
     # table resolve, so the first step need not change anything; it must
-    # change no unselected row, and the step is held to the CPU below on
+    # change no unselected row, and the step is held to the CPU after on
     # the rows with a history
-    log(f"[k120] the first batch's global gradient norm before the clip (no dropout): "
+    log(f"[{tag}] the first batch's global gradient norm before the clip (no dropout): "
         f"{grad_norm_on(cfg, model, batches[0]):.6g} (the clip is at {cfg.train.grad_clip_norm}; "
         f"{int((batches[0]['seq'] == cfg.sequence.pad_id).all(dim=1).sum())} rows have an "
         f"empty history)")
-    state, step, launches = trained_steps(cfg, model, batches, K120_STEPS, "k120", expected,
+    state, step, launches = trained_steps(cfg, model, batches, LARGE_K_STEPS, tag, expected,
                                           require_change=False)
+    return cfg, cache, model, state, step, batches, launches
+
+
+def k120_phase(tmp, dev):
+    """``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120, 4 encoder
+    layers, S1 query, B = 8192; ``large_k_steps``): train steps through
+    the RMS encoder kernels at K = 120 (K padded to 128: the backwards'
+    dbias in registers), the fp32 512-row step held against the CPU and
+    against the plain versions on the card (``train_reference_check``),
+    the weights served from one fold checkpoint through ``infer_main`` and
+    held against the CPU plain path within 0.02.  -> (launches of the
+    timed steps, launches of infer_main)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import v3_k120_config_dict
+    from tossctr_tpu_torch.data import ShardCache
+    from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.eval.calibration import Calibrator, TemperatureScaler
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.train.checkpoint import save_fold_checkpoint
+
+    d = v3_k120_config_dict()
+    d["exp_name"] = "chip_k120"
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    cfg, cache, model, state, step, batches, launches = large_k_steps(d, tmp, dev, "k120", 13)
     del state, step, batches
     torch.cuda.empty_cache()
     train_reference_check(copy.deepcopy(d), cache, dev, "none", tag="k120", held_only=True)
     torch.cuda.empty_cache()
 
+    B, n_layers = cfg.train.batch_size, cfg.sequence.tfm.n_layers
+    d["data"]["manifest_test"] = write_synth_cache_for(
+        cfg, os.path.join(tmp, "cache", "k120_test"), 2 * B, num_dim=N_NUM, seed=14)
+    cfg = Config.from_dict(copy.deepcopy(d))
     cal = Calibrator("temperature")
     cal.temp_scaler = TemperatureScaler(T=1.1)
     save_fold_checkpoint(cfg.exp_dir(), 0, state_dict=model.state_dict(), cfg_dict=cfg.to_dict(),
-                         best_score=0.4, epoch=1, global_step=K120_STEPS + 2, calibrator=cal)
+                         best_score=0.4, epoch=1, global_step=LARGE_K_STEPS + 2, calibrator=cal)
     del model
     torch.cuda.empty_cache()
     test_cache = ShardCache(d["data"]["manifest_test"])
@@ -1702,6 +1750,36 @@ def k120_phase(tmp, dev):
     reference_check(cfg, test_cache, dev, tag="k120")
     torch.cuda.empty_cache()
     return launches, served
+
+
+def k148_phase(tmp, dev):
+    """``cfgs/v3_k148_s1_tpu.yaml`` at full width (K = 148 padded to 152,
+    4 encoder layers, S1 query, B = 4096; ``large_k_steps``): train steps
+    through the RMS encoder kernels at K = 152 (the attention backward's
+    tensor-core form at K padded to 160), one step under the profiler,
+    then the bf16 512-row step held against the CPU and against the plain
+    versions on the card with every ReLU pinned and the bands derived from
+    the perturbation witness (``train_reference_check`` with K148_BANDS),
+    which is what judges a tensor-core attention kernel inside the step,
+    and the negative controls on those bands.  Not served:
+    the K = 120 phase serves through the same forwards.  -> launches of
+    the timed steps."""
+    import torch
+
+    from tossctr_tpu_torch.config.flagship import v3_k148_config_dict
+
+    d = v3_k148_config_dict()
+    d["exp_name"] = "chip_k148"
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    _, cache, model, state, step, batches, launches = large_k_steps(d, tmp, dev, "k148", 15)
+    profile_step(state, step, batches[0], "k148")
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    checked = train_reference_check(copy.deepcopy(d), cache, dev, "bf16", tag="k148",
+                                    held_only=True, bands=K148_BANDS)
+    negative_controls(*checked["pinned"], tag="k148 controls")
+    torch.cuda.empty_cache()
+    return launches
 
 
 # the three streaming table-update modes the JAX sparse step dispatches
@@ -2135,13 +2213,17 @@ class PinnedPlain:
         is not the plain forward's."""
         return sum(int((a != b).sum()) for a, b in zip(self.signs_under(ctx), self.signs))
 
-    def witness(self, bands, share=WITNESS_SHARE):
-        """-> (``bands`` with each None derived: the largest distance, at
-        most WITNESS_CAP, of the plain step with one RMS encoder kernel's
-        bf16 outputs nudged by an ulp on ``share`` of them (``ulp_nudged``)
-        from the plain step; {kernel: its distances})."""
+    def witness(self, bands, share=WITNESS_SHARE, together=False):
+        """-> (``bands`` with each None derived, at most WITNESS_CAP: the
+        largest distance from the plain step of the plain step with one RMS
+        encoder kernel's bf16 outputs nudged by an ulp on ``share`` of them
+        (``ulp_nudged``), with ``together`` also of the plain step with all
+        four nudged at once; {kernel, or "all four": its distances})."""
         found = {k: self.compare(lambda k=k: plain_versions_on_card(ulp_nudged(k, share)))
                  for k in RMS_ENCODER}
+        if together:
+            found["all four"] = self.compare(lambda: plain_versions_on_card(
+                *(ulp_nudged(k, share) for k in RMS_ENCODER)))
         out = {m: min(WITNESS_CAP, max(g[m] for g in found.values())) if b is None else b
                for m, b in bands.items()}
         return out, found
@@ -2320,7 +2402,7 @@ def negative_controls(pin, bands, tag="controls"):
     return out
 
 
-def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
+def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, bands=None):
     """One step from one state on a CHECK_ROWS-row batch, in the compute
     dtype of ``amp``, kernel dropouts on (the counter-hash masks are the
     same everywhere) and the other dropouts off: the card's step against
@@ -2354,7 +2436,8 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     to the plain step's signs (``PinnedPlain``; the unpinned pair and its
     ReLU sign flips are reported beside, not held), and the bands of None
     come from the perturbation witness measured in the same run.
-    ``held_only``: the two held comparisons alone.  -> the numbers, by
+    ``held_only``: the two held comparisons alone.  ``bands``: in place of
+    CHECK_BANDS[amp] (the K = 148 phase's K148_BANDS).  -> the numbers, by
     name; in bf16 also "pinned": (the ``PinnedPlain``, its bands), for
     ``negative_controls``."""
     import torch
@@ -2368,7 +2451,7 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     d["amp"] = amp
     d["model"]["table_dtype"] = "float32"
     cfg = Config.from_dict(d)
-    bands = CHECK_BANDS[amp]
+    bands = bands or CHECK_BANDS[amp]
     batch = next(iter(BatchIterator(cache, batch_size=CHECK_ROWS, train=True)))
     cpu = torch.device("cpu")
     card_model = init_params(build_model(cfg, cache.dims, dev), seed=77)
@@ -2431,14 +2514,16 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False):
     if pinned:
         t0 = time.time()
         pin = PinnedPlain(cfg, card_model, init, rows_of(nonempty), dev, ids_of(nonempty))
-        held_bands["vs_plain"], wit = pin.witness(bands["vs_plain"])
+        together = bands["witness"] == "all"
+        held_bands["vs_plain"], wit = pin.witness(bands["vs_plain"], together=together)
         for k, w in wit.items():
             log(f"[{tag}] amp={amp} vs_plain witness: the plain step with {k}'s bf16 outputs "
                 f"{WITNESS_SHARE:.3%} moved by an ulp, against the plain step, both pinned: "
                 + ", ".join(f"{m} {w[m]:.4g} (band {b:.4g})"
                             for m, b in held_bands["vs_plain"].items()))
-        log(f"[{tag}] amp={amp} vs_plain derived bands (the largest witness, at most "
-            f"{WITNESS_CAP}): " + ", ".join(
+        log(f"[{tag}] amp={amp} vs_plain derived bands (the largest witness"
+            + (", all four at once among them" if together else "")
+            + f", at most {WITNESS_CAP}): " + ", ".join(
                 f"{m} {held_bands['vs_plain'][m]:.4g}" for m, b in bands["vs_plain"].items()
                 if b is None))
         flips = pin.flips(contextlib.nullcontext)
@@ -2639,6 +2724,9 @@ def main() -> int:
         k120_launches, k120_served = k120_phase(tmp, dev)
         k120_wall = time.time() - t0
         t0 = time.time()
+        k148_launches = k148_phase(tmp, dev)
+        k148_wall = time.time() - t0
+        t0 = time.time()
         fold_launches, fold_served = fold_phase(tmp, man, dev)
         fold_wall = time.time() - t0
 
@@ -2667,11 +2755,12 @@ def main() -> int:
         r["launches_fold"] = fold_launches[name]
         r["launches_layernorm"] = layer_launches[name]
         r["launches_k120"], r["launches_k120_serving"] = k120_launches[name], k120_served[name]
+        r["launches_k148"] = k148_launches[name]
     total = time.time() - T_START
     log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s, the "
         f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s, the "
-        f"K = 120 phase {k120_wall:.1f} s, the scatter probe {probe_wall:.1f} s and the "
-        f"dropout check {dump_wall:.1f} s of it")
+        f"K = 120 phase {k120_wall:.1f} s, the K = 148 phase {k148_wall:.1f} s, the scatter "
+        f"probe {probe_wall:.1f} s and the dropout check {dump_wall:.1f} s of it")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,18 @@ only on the card, in test_torch_cuda_kernels.py):
   exp(s - max) in (0, 1], l their row sum in [1, 152]) and on the edges
   (e = l, e = 0, powers of two);
 * the wrappers' shape rules match the C sources' constants: the
-  backwards' K <= 128 (``kMaxKP``), the forwards' K <= 160
-  (``kMaxKPFwd``) with the heads padded to at most 64 columns
+  backwards' K <= 160 (``kMaxKP``), with dbias in registers and no other
+  bf16 kernel up to K = 128 (``kMaxKPRegs``) and above it the heads
+  padded to at most 64 columns (``bwd_unit_shape``), the forwards' K <=
+  160 (``kMaxKPFwd``) with the heads padded to at most 64 columns
   (``kMaxFwdNQ``), head widths 4 to 16 in steps of 4 (``head_ok``), the
   qkv backward's dWqkv in at most 48 units of 16 x 16 (``kWUnits``), and
   the head-padded widths the rules imply at the shapes the card tests
   run; the forwards' C entry points refuse, for the warp-unit kernel,
-  the shapes the wrapper's rule sends to the tiled one.
+  the shapes the wrapper's rule sends to the tiled one; the backwards'
+  C entry points run the tensor-core kernel for the shapes
+  ``bwd_mma_kernel`` names, refuse the others at K <= 128 and send them
+  to the key-tiled kernel above.
 
 One test item (see ``_torch_helpers``).
 """
@@ -79,7 +84,16 @@ def test_attention_mma_division_and_shape_rules():
     def shape_rules_match_the_sources():
         core = (CSRC / "mha_mma.cuh").read_text()
         qkv = (CSRC / "fused_mha_qkv_bwd.cu").read_text()
+        mha = (CSRC / "fused_mha_bwd.cu").read_text()
         assert re.search(r"constexpr int kMaxKP = (\d+);", core).group(1) == str(fa.MMA_MAX_K)
+        assert re.search(r"constexpr int kMaxKPRegs = (\d+);", core).group(1) == str(
+            fa.MMA_REGS_MAX_K)
+        assert ("return g.K <= kMaxKP && head_ok(g.dh) && (g.K <= kMaxKPRegs || "
+                "g.H * g.DHP <= kMaxFwdNQ);" in core)
+        for src in (qkv, mha):
+            assert "if (!tossctr::mha_mma::bwd_unit_shape(" in src
+        assert "if (dtype == 1 && K <= tc::kMaxKPRegs) return (int)cudaErrorInvalidValue;" in qkv
+        assert "if (K <= tc::kMaxKPRegs) return (int)cudaErrorInvalidValue;" in mha
         assert "return dh >= 4 && dh <= 16 && dh % 4 == 0;" in core
         assert re.search(r"constexpr int kWUnits = (\d+);", qkv).group(1) == str(
             fa._MMA_WGRAD_UNITS)
@@ -111,6 +125,21 @@ def test_attention_mma_division_and_shape_rules():
                            (32, 2): True, (32, 8): True, (64, 16): False, (24, 4): False,
                            (64, 2): False, (56, 14): False}.items():
             assert fa._mma_qkv_ok(D, H) is ok, (D, H)
+        # (dtype, K, D, H) -> (qkv, mha) backwards on their tensor-core
+        # kernels: bf16, K <= 160, dh 4-16 (and the qkv kernel's dWqkv
+        # units); above K = 128 also the heads padded to at most 64 columns
+        for (dt, K, D, H), ok in {(bf, 64, 64, 8): (True, True), (bf, 120, 64, 8): (True, True),
+                                  (bf, 128, 64, 16): (False, True),
+                                  (bf, 129, 64, 8): (True, True), (bf, 152, 64, 8): (True, True),
+                                  (bf, 137, 48, 4): (True, True), (bf, 160, 32, 8): (True, True),
+                                  (bf, 160, 64, 4): (True, True), (bf, 160, 48, 6): (True, True),
+                                  (bf, 152, 64, 16): (False, False),
+                                  (bf, 152, 48, 12): (False, False),
+                                  (bf, 152, 64, 2): (False, False),
+                                  (bf, 161, 64, 8): (False, False),
+                                  (f32, 152, 64, 8): (False, False)}.items():
+            got = tuple(fa.bwd_mma_kernel(dt, K, D, H, qkv) for qkv in (True, False))
+            assert got == ok, (dt, K, D, H, got)
 
     checks = Checks()
     checks.run("division is correctly rounded", division_is_correctly_rounded)

@@ -21,7 +21,11 @@ def test_config_and_spec_match_jax():
     from tossctr_tpu.config import load_config as jax_load_config
     from tossctr_tpu.models.ctr_model import build_model_spec as jax_build_model_spec
     from tossctr_tpu_torch.config import Config, load_config
-    from tossctr_tpu_torch.config.flagship import flagship_config_dict, v3_k120_config_dict
+    from tossctr_tpu_torch.config.flagship import (
+        flagship_config_dict,
+        v3_k120_config_dict,
+        v3_k148_config_dict,
+    )
     from tossctr_tpu_torch.config.schema import deep_merge, load_yaml_with_base
     from tossctr_tpu_torch.models.ctr_model import build_model_spec
 
@@ -33,10 +37,14 @@ def test_config_and_spec_match_jax():
             assert flagship_config_dict() == yaml.safe_load(f)
 
     def v3_k120_dict_is_the_yaml_file_over_its_base():
-        path = os.path.join(os.path.dirname(FLAGSHIP), "v3_k120_s1_tpu.yaml")
-        assert v3_k120_config_dict() == load_yaml_with_base(path)
-        cfg = Config.from_dict(v3_k120_config_dict())
-        assert (cfg.sequence.top_k, cfg.sequence.tfm.n_layers) == (120, 4)
+        """Also v3_k148, whose base is v3_k120."""
+        for name, fn, want in (("v3_k120_s1_tpu", v3_k120_config_dict, (120, 4, 8192)),
+                               ("v3_k148_s1_tpu", v3_k148_config_dict, (148, 4, 4096))):
+            path = os.path.join(os.path.dirname(FLAGSHIP), f"{name}.yaml")
+            assert fn() == load_yaml_with_base(path), name
+            cfg = Config.from_dict(fn())
+            got = (cfg.sequence.top_k, cfg.sequence.tfm.n_layers, cfg.train.batch_size)
+            assert got == want, (name, got)
 
     def compute_dtype():
         for amp, want in (("bf16", torch.bfloat16), ("fp16", torch.bfloat16),

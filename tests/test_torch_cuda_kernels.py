@@ -19,11 +19,13 @@ take (4, 8, 12, 16; D = 32, 48 and 64), at grids of 1 and 7 blocks,
 beside the tiled CUDA-core kernels at the bf16 shapes they keep (a head
 width of 32, heads padded past 64 columns, K = 161) and the refusal of
 unaligned tensors, the two bf16 backwards' tensor-core kernels (K <=
-128) at every head width they take (4, 8, 12, 16), at K = 12, 17, 33,
-60, 64, 65, 97, 100, 121 and 128, at
-grids of 1 and 7 blocks (and the CUDA-core ones at K = 152), through
-autograd,
-and their refusals of the head widths they do not take,
+160) at every head width they take (4, 8, 12, 16; D = 32, 48 and 64), at
+K = 12, 17, 33, 60, 64, 65, 97, 100, 121 and 128 (dbias in registers)
+and at K = 129, 137, 152 and 160 (10 warps, dbias in device memory), at
+grids of 1 and 7 blocks, through autograd (at K = 152 too), beside the
+key-tiled CUDA-core backwards at the bf16 shapes they keep (K = 161; at
+K = 152 16 heads of 4, padded past 64 columns),
+and their refusals of the head widths they do not take at K <= 128,
 ``fused_ffn`` at N = 37 and 130
 rows (not multiples of its row tiles) and F = 40 and 100 (not
 multiples of its 64-column hidden chunk), at D = 32, F = 64, at N =
@@ -806,6 +808,34 @@ def test_cuda_kernels_match_plain_versions():
         for B, K in ((7, 12), (9, 60), (6, 64), (4, 120), (3, 152)):
             checks.run(f"attention bwd grids bf16 p={p} B={B} K={K}", attention_bwd_grids, B, K,
                        64, 8, p)
+    # the bf16 backwards' tensor-core kernels at K padded to 160 (10 warps,
+    # one a query tile; dbias in device memory; the qkv kernel's Wqkv and x
+    # copied again each row) at every head width they take (dh 4, 8, 12,
+    # 16 at D = 32, 48, 64; heads padded to 48 and 64 columns), the first
+    # K of the form, a ragged one, the K = 148 config's 152 and the form's
+    # end, across grids of 1, 7 and the default with rows enough for several
+    # walks; then the key-tiled CUDA-core backwards at the bf16 shapes they
+    # keep: K = 161, and at K = 152 16 heads of 4 (padded to 128 columns),
+    # which go to them by shape, not refused
+    fa = importlib.import_module("tossctr_tpu_torch.ops.fused_attention")
+    for p in (0.0, P_DROP):
+        for B, K, D, H in ((3, 129, 64, 8), (3, 137, 48, 4), (5, 152, 64, 8), (3, 152, 32, 8),
+                           (3, 160, 64, 4), (3, 160, 48, 6), (3, 160, 32, 2)):
+            tag = f"bf16 p={p} B={B} K={K} D={D} H={H}"
+            assert fa.bwd_mma_kernel(torch.bfloat16, K, D, H, True), tag
+            assert fa.bwd_mma_kernel(torch.bfloat16, K, D, H, False), tag
+            checks.run(f"attention bwd mma {tag}", attention_bwd, "bf16", B, K, D, H, p)
+            checks.run(f"mha mma {tag}", mha, "bf16", B, K, D, H, p)
+        for B, K in ((20, 129), (20, 152), (20, 160)):
+            checks.run(f"attention bwd grids bf16 p={p} B={B} K={K}", attention_bwd_grids, B, K,
+                       64, 8, p)
+        for B, K, D, H in ((3, 161, 64, 8), (3, 152, 64, 16)):
+            tag = f"bf16 p={p} B={B} K={K} D={D} H={H}"
+            assert not fa.bwd_mma_kernel(torch.bfloat16, K, D, H, False), tag
+            checks.run(f"attention bwd tiled {tag}", attention_bwd, "bf16", B, K, D, H, p)
+            checks.run(f"mha tiled {tag}", mha, "bf16", B, K, D, H, p)
+    checks.run("attention autograd bf16 K=152", attention_autograd, "bf16", 3, 152, 64, 8, P_DROP)
+    checks.run("mha autograd bf16 K=152", mha_autograd, "bf16", 3, 152, 64, 8, P_DROP)
     # the bf16 forwards' warp-unit kernels (K <= 160: K padded to 64, 128
     # or 160) at every head width they take (dh 4, 8, 12, 16 at D = 32, 48,
     # 64), the flagship's K = 60 and 64, ragged K, each padding's ends, the

@@ -10,7 +10,9 @@ too (a CPU tensor takes them), so what is held is the check itself:
 * the pinned step against itself is 0 on every held metric;
 * the perturbation witness (one RMS encoder kernel's bf16 outputs moved
   by one ulp on a seeded share of their elements) moves the step, and the
-  tail forward's witness lies inside the bands it derives;
+  tail forward's witness lies inside the bands it derives; with all four
+  kernels nudged at once too (the K = 148 phase's bands) that step joins
+  the four it derives the bands from;
 * each of the three wrong plain versions of the negative controls lands
   out of at least one of those bands.
 
@@ -72,6 +74,7 @@ def test_step_check_machinery():
         pin = cs.PinnedPlain(cfg, model, init, batch, cpu, ids)
         bands = cs.CHECK_BANDS["bf16"]["vs_plain"]
         derived, wit = pin.witness(bands, share=SHARE)
+        together, wit4 = pin.witness(bands, share=SHARE, together=True)
 
         def pinned_is_relu():
             assert sum(int(m.numel()) for m in pin.signs) > 0, "no ReLU recorded"
@@ -96,6 +99,12 @@ def test_step_check_machinery():
             tail = wit["fused_block_tail"]
             off = [m for m, b in derived.items() if not tail[m] <= b]
             assert not off, f"the tail forward's witness is out of band: {off} {tail}"
+            assert cs.K148_BANDS["witness"] == "all" and cs.CHECK_BANDS["bf16"]["witness"] == "each"
+            assert wit4["all four"]["grads"] > 0.0, "the four nudged at once do not move the step"
+            assert wit4.keys() == {*wit, "all four"}
+            for m, b in bands.items():
+                want = min(cs.WITNESS_CAP, max(g[m] for g in wit4.values())) if b is None else b
+                assert together[m] == want, m
 
         def wrong_versions_fail():
             controls = pin.negative_controls(derived)

@@ -28,7 +28,7 @@
 // softmax's expf and division, the keep hash, ds, dbias; ~30 lane
 // instructions an element, ~0.3 ms) sets it.
 //
-// Design, bf16 at K <= 128 (mha_bwd_mma; mha_mma.cuh): every product on
+// Design, bf16 at K <= 160 (mha_bwd_mma; mha_mma.cuh): every product on
 // the tensor cores (mma.sync, bf16 operands, fp32 sums).  Persistent
 // blocks of 8 warps walk batch rows; a row's q, k, v and do come in whole
 // with 16-byte cp.async into bf16 slabs, each head padded to 8 or 16
@@ -38,21 +38,29 @@
 // ds in registers, dq = round(ds * scale) k_h straight from them, and
 // round(ds * scale), round(p * keep) to two bf16 buffers; after a barrier
 // a warp takes one (16-key tile, head) unit: dk and dv by ldmatrix.trans
-// of those buffers.  K is padded to 64 or 128.  At 64 (the flagship) four
-// query tiles x two heads fill the 8 warps, a row takes 4 pairs of
+// of those buffers.  K is padded to 64, 128 or 160.  At 64 (the flagship)
+// four query tiles x two heads fill the 8 warps, a row takes 4 pairs of
 // barriers, and two blocks share an SM (92 KB, 128 registers); at 128
 // (K = 120) eight query tiles x one head, 8 pairs, one block an SM (197
 // KB, up to 255 registers).  dbias has one owner lane an entry: a warp
-// always takes the same query tile, keeps its tile's sums in registers
-// across heads and rows, and the copies are added in warp order into the
-// block's partial once, at the end (no read-modify-write in device memory
-// per row).  dq, dk and dv leave through the slabs (dk and dv over k_h and
+// always takes the same query tile.  Up to 128 it keeps its tile's sums
+// in registers across heads and rows, and the copies are added in warp
+// order into the block's partial once, at the end.  At 160 (K = 152) the
+// scores alone take 80 registers a lane and 10 query tiles do not divide
+// over 8 warps, so a block has 10 warps (up to 200 registers), one a
+// query tile, the bias is read from device memory (its tile would not fit
+// beside the slabs and the 10 warps' P and dS buffers: 218 KB), and each
+// ds goes into the block's partial in device memory by its owner lane's
+// atomics, in program order (~92 KB a block: it stays in L2).  dq, dk and
+// dv leave through the slabs (dk and dv over k_h and
 // v_h, which no unit reads any more) in 16-byte stores.  A second kernel
 // (common.cuh reduce_partials) adds the blocks' partials in block order,
 // so the result repeats bit for bit (fp32 atomics would not), and a row's
 // dq, dk, dv do not depend on the grid.
 //
-// bf16 at K > 128 and fp32 (mha_bwd_tiled_kernel): the CUDA cores, one head
+// fp32, and bf16 above K = 160 or at 128 < K <= 160 with a head width or
+// heads the tensor-core kernel does not take (mha_bwd_tiled_kernel): the
+// CUDA cores, one head
 // at a time (mha_core.cuh head_bwd_tiled): a persistent block walks batch
 // rows, stages a head's q, k, v and do as (dh, K4) fp32 tensors, walks its
 // queries in tiles of QT rows (the largest of {K4, 64, 32, 16, 8} whose
@@ -161,44 +169,56 @@ int launch(const void* q, const void* k, const void* v, const void* bias, const 
 }
 
 
-// ---- bf16 at K <= 128: the tensor-core kernel ----
+// ---- bf16 at K <= 160: the tensor-core kernel ----
 
 namespace tc {
 
 using tossctr::mha_mma::Geo;
-using tossctr::mha_mma::kMaxKP;
-using tossctr::mha_mma::kWarps;
+using tossctr::mha_mma::kMaxKPRegs;
 using tossctr::mha_mma::ldp;
 using tossctr::ptx::bf16;
-constexpr int kThreads = tossctr::mha_mma::kThreads;
 
+// The kernel's form: 8 warps up to KP = 128, the bias a resident tile and
+// dbias in registers; at KP = 160 kWarpsWide, one a query tile, the bias
+// read from device memory and dbias added into the block's partial there
+template <int KP>
+struct Form {
+  static constexpr bool kWide = KP > kMaxKPRegs;
+  static constexpr int kWarps = kWide ? tossctr::mha_mma::kWarpsWide : tossctr::mha_mma::kWarps;
+  static constexpr int kThreads = kWarps * 32;
+};
+
+template <int KP>
 struct Layout {  // offsets in bytes
   int q, k, v, dout, dq, bias, p, ds, total;
-  __host__ __device__ Layout(const Geo& g, int KP) {
+  __host__ __device__ explicit Layout(const Geo& g) {
+    using F = Form<KP>;
     const int slab = KP * g.RS * 2;
     q = 0;
     k = q + slab;
     v = k + slab;     // v, then dv head by head; k, then dk
     dout = v + slab;
     dq = dout + slab;
-    bias = dq + slab;                        // (KP, ldp(KP)) bf16
-    p = bias + KP * ldp(KP) * 2;             // round(p * keep) of kWarps units of 16 rows
-    ds = p + kWarps * 16 * ldp(KP) * 2;      // round(ds * scale), the same; with p, the
-    total = ds + kWarps * 16 * ldp(KP) * 2;  // dbias flush's scratch at the end
+    bias = dq + slab;                                  // (KP, ldp(KP)) bf16, below KP = 160
+    p = bias + (F::kWide ? 0 : KP * ldp(KP) * 2);      // round(p * keep) of a 16-row unit a warp
+    ds = p + F::kWarps * 16 * ldp(KP) * 2;             // round(ds * scale), the same; with p,
+    total = ds + F::kWarps * 16 * ldp(KP) * 2;         // the dbias flush's scratch at the end
   }
 };
 
-// two blocks an SM at KP = 64 (92 KB, 128 registers); one at KP = 128
+// two blocks an SM at KP = 64 (92 KB, 128 registers); one above (KP = 128:
+// 197 KB, up to 255 registers; KP = 160: 218 KB, up to 200)
 template <int KP, int DHP>
-__global__ void __launch_bounds__(kThreads, KP == 64 ? 2 : 1)
+__global__ void __launch_bounds__(Form<KP>::kThreads, KP == 64 ? 2 : 1)
 mha_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
             const bf16* __restrict__ bias, const bf16* __restrict__ dout, bf16* __restrict__ dq,
             bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ partials, int B,
             int K, int D, int H, float scale, Dropout drop) {
   using namespace tossctr::mha_mma;
+  using F = Form<KP>;
   extern __shared__ __align__(16) unsigned char smem[];
   const Geo geo(K, D, H);
-  const Layout L(geo, KP);
+  const Layout<KP> L(geo);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
   bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
   bf16* vs = reinterpret_cast<bf16*>(smem + L.v);
@@ -207,18 +227,23 @@ mha_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   bf16* bias_s = reinterpret_cast<bf16*>(smem + L.bias);
   bf16* pbuf = reinterpret_cast<bf16*>(smem + L.p);
   bf16* dsbuf = reinterpret_cast<bf16*>(smem + L.ds);
+  float* part = partials + (size_t)blockIdx.x * K * K;  // this block's dbias partial
   const int tid = threadIdx.x;
 
   // zeros everywhere: pad rows and columns are never written with anything else
-  for (int i = tid; i < L.total / 16; i += kThreads)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  zero_bytes(smem, L.total);
+  if constexpr (F::kWide)
+    for (int i = tid; i < K * K; i += F::kThreads) part[i] = 0.f;
   __syncthreads();
-  for (int i = tid; i < K * K; i += kThreads) {
-    const int r = i / K;
-    bias_s[r * ldp(KP) + i - r * K] = bias[i];
-  }
+  if constexpr (!F::kWide)
+    for (int i = tid; i < K * K; i += F::kThreads) {
+      const int r = i / K;
+      bias_s[r * ldp(KP) + i - r * K] = bias[i];
+    }
 
-  float db[KP / 8][4] = {};
+  DbFor<KP> db(part, K);
+  const bf16* bias_src = F::kWide ? bias : bias_s;
+  const int bias_ld = F::kWide ? K : ldp(KP);
   for (int row = blockIdx.x; row < B; row += gridDim.x) {
     const size_t off = (size_t)row * K * D;
     stage_heads(qs, q + off, geo);
@@ -228,28 +253,28 @@ mha_bwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    row_grads<KP, DHP>(qs, ks, vs, dos, bias_s, ldp(KP), dqs, pbuf, dsbuf, db, nullptr, geo, row,
-                       scale, drop, 0, 1);
+    row_grads<KP, DHP, F::kWarps>(qs, ks, vs, dos, bias_src, bias_ld, dqs, pbuf, dsbuf, db,
+                                  nullptr, geo, row, scale, drop, 0, 1);
     store_heads(dq + off, dqs, geo);
     store_heads(dk + off, ks, geo);
     store_heads(dv + off, vs, geo);
     __syncthreads();  // the slabs are read out before the next row's come in
   }
-  flush_dbias<KP>(db, reinterpret_cast<float*>(smem + L.p), geo,
-                  partials + (size_t)blockIdx.x * K * K);
+  if constexpr (!F::kWide) flush_dbias<KP>(db, reinterpret_cast<float*>(smem + L.p), geo, part);
 }
 
 template <int KP, int DHP>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* dout,
            void* dq, void* dk, void* dv, float* partials, float* dbias, int max_blocks, int B,
            int K, int D, int H, float scale, Dropout drop, int device, void* stream) {
-  const size_t smem = (size_t)Layout(Geo(K, D, H), KP).total;
+  constexpr int threads = Form<KP>::kThreads;
+  const size_t smem = (size_t)Layout<KP>(Geo(K, D, H)).total;
   int grid = 0;
-  cudaError_t e = tossctr::prepare_launch(mha_bwd_mma<KP, DHP>, kThreads, smem, max_blocks,
+  cudaError_t e = tossctr::prepare_launch(mha_bwd_mma<KP, DHP>, threads, smem, max_blocks,
                                           device, 1, &grid);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  mha_bwd_mma<KP, DHP><<<grid, kThreads, smem, s>>>(
+  mha_bwd_mma<KP, DHP><<<grid, threads, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(bias), static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), partials, B, K, D, H, scale, drop);
@@ -258,29 +283,30 @@ int launch(const void* q, const void* k, const void* v, const void* bias, const 
   return (int)tossctr::launch_reduce(partials, grid, K * K, dbias, s);
 }
 
-// K padded to 64 or 128, the head to 8 or 16 columns
+// K padded to 64, 128 or 160, the head to 8 or 16 columns
 int launch_bf16(const void* q, const void* k, const void* v, const void* bias,
                 const void* dout, void* dq, void* dk, void* dv, float* partials, float* dbias,
                 int max_blocks, int B, int K, int D, int H, float scale, Dropout drop,
                 int device, void* stream) {
   const bool narrow = D / H <= 8;
-  if (K <= 64)
-    return narrow ? launch<64, 8>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks,
-                                  B, K, D, H, scale, drop, device, stream)
-                  : launch<64, 16>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks,
-                                   B, K, D, H, scale, drop, device, stream);
-  return narrow ? launch<128, 8>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks, B,
-                                 K, D, H, scale, drop, device, stream)
-                : launch<128, 16>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks,
-                                  B, K, D, H, scale, drop, device, stream);
+#define TOSSCTR_LAUNCH(KP)                                                                       \
+  return narrow ? launch<KP, 8>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks, B, \
+                                K, D, H, scale, drop, device, stream)                            \
+                : launch<KP, 16>(q, k, v, bias, dout, dq, dk, dv, partials, dbias, max_blocks,   \
+                                 B, K, D, H, scale, drop, device, stream)
+  if (K <= 64) TOSSCTR_LAUNCH(64);
+  if (K <= 128) TOSSCTR_LAUNCH(128);
+  TOSSCTR_LAUNCH(160);
+#undef TOSSCTR_LAUNCH
 }
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
-// the shapes the kernel takes: K <= 128, 4 <= dh <= 16, dh % 4 == 0, and
-// base addresses aligned for its 16- (or 8-) byte copies
+// the shapes the kernel takes (mha_mma.cuh bwd_unit_shape: K <= 160, 4 <=
+// dh <= 16, dh % 4 == 0; above K = 128 the padded heads at most 64 columns
+// wide), with base addresses aligned for its 16- (or 8-) byte copies
 bool takes(int K, int D, int H, const void* const* ptrs, int n) {
-  if (K > kMaxKP || !tossctr::mha_mma::head_ok(D / H)) return false;
+  if (!tossctr::mha_mma::bwd_unit_shape(Geo(K, D, H))) return false;
   const int bytes = (D / H) % 8 == 0 ? 16 : 8;
   for (int i = 0; i < n; ++i)
     if (!aligned(ptrs[i], bytes)) return false;
@@ -296,11 +322,13 @@ bool takes(int K, int D, int H, const void* const* ptrs, int n) {
 // stride of the grid; a block with none writes zeros).  partials:
 // (max_blocks, K*K) fp32 scratch; dbias: (K, K) fp32 out.  Dropout:
 // keep_thresh (0 = off), keep_scale, seed, as the forward got them.
-// D <= 64; in bf16 at K <= 128 (the tensor-core kernel) the head width D / H
-// is a multiple of 4 from 4 to 16 and the tensors' base addresses are
-// 16-byte aligned (8 where dh % 8 != 0).  Returns a cudaError_t code; a
-// shape the kernels do not take, or whose layout does not fit a block's
-// shared memory, is refused before any launch.
+// D <= 64.  bf16 runs the tensor-core kernel where tc::takes says so (K <=
+// 160, the head width D / H a multiple of 4 from 4 to 16, above K = 128
+// the heads padded to at most 64 columns, the tensors' base addresses
+// 16-byte aligned, 8 where dh % 8 != 0), refuses every other shape at K <=
+// 128 and runs the key-tiled kernel there above.  Returns a cudaError_t
+// code; a shape the kernels do not take, or whose layout does not fit a
+// block's shared memory, is refused before any launch.
 extern "C" int tossctr_fused_mha_bwd(const void* q, const void* k, const void* v,
                                      const void* bias, const void* dout, void* dq, void* dk,
                                      void* dv, void* partials, void* dbias, int max_blocks,
@@ -316,13 +344,13 @@ extern "C" int tossctr_fused_mha_bwd(const void* q, const void* k, const void* v
     return launch<float>(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H, scale,
                          drop, device, stream);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (K > tc::kMaxKP)
-    return launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H,
-                                 scale, drop, device, stream);
   const void* ptrs[] = {q, k, v, dout, dq, dk, dv};
-  if (!tc::takes(K, D, H, ptrs, 7)) return (int)cudaErrorInvalidValue;
-  return tc::launch_bf16(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H, scale,
-                         drop, device, stream);
+  if (tc::takes(K, D, H, ptrs, 7))
+    return tc::launch_bf16(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H, scale,
+                           drop, device, stream);
+  if (K <= tc::kMaxKPRegs) return (int)cudaErrorInvalidValue;  // no other bf16 kernel there
+  return launch<__nv_bfloat16>(q, k, v, bias, dout, dq, dk, dv, p, g, max_blocks, B, K, D, H,
+                               scale, drop, device, stream);
 }
 
 extern "C" const char* tossctr_cuda_error_string(int code) {

@@ -27,7 +27,7 @@
 // hash, ds, dbias: ~30 lane instructions an element, ~0.3 ms) sets it, as
 // in fused_mha_bwd.cu.
 //
-// Design, bf16 at K <= 128 (mha_qkv_bwd_mma): every product on the
+// Design, bf16 at K <= 160 (mha_qkv_bwd_mma): every product on the
 // tensor cores (mma.sync, bf16 operands, fp32 sums).  One persistent block
 // an SM walks batch rows with Wqkv (bf16, each head's columns padded to 8
 // or 16) resident; a row's x and do come in whole with cp.async into bf16
@@ -39,7 +39,7 @@
 // owner thread an entry, and dx = round([dq|dk|dv] Wqkv^T) through a
 // staging tile to 16-byte stores.  dbqkv sums the unrounded dq, dk, dv
 // from the units' fragments into shared slots, one owner warp a (tile,
-// head).  K is padded to 64 or 128:
+// head).  K is padded to 64, 128 or 160:
 //   - 64 (the flagship): 16 warps in two halves that take alternate head
 //     groups, each half with its own barrier, so the halves' barriers do
 //     not wait on each other, as two blocks of 8 warps would not; dWqkv's
@@ -49,13 +49,22 @@
 //   - 128 (K = 120): 8 warps; dWqkv's sums added once a row into the
 //     block's partial in device memory (one owner thread an entry, so in a
 //     fixed order); the bias read from device memory, one buffer of x;
-//     208 KB.
+//     208 KB;
+//   - 160 (K = 152): 10 warps, one a query tile (10 tiles do not divide
+//     over 8, and the scores take 80 registers a lane: up to 200
+//     registers), dbias added by its owner lanes' atomics into the block's
+//     partial in device memory (mha_mma.cuh DbPartial) as each unit ends;
+//     the 10 warps' P and dS buffers leave no room for Wqkv and x beside
+//     them, so Wqkv, x and the dx staging tile share the buffers' space:
+//     Wqkv and the row's x come in again (from L2) after the row's heads,
+//     the next row's x after its dWqkv; 226 KB.
 // At the end each block writes its fp32 partials once; a second kernel
 // (common.cuh reduce_partials) adds them in block order, so the result
 // repeats bit for bit (fp32 atomics would not), and a row's dx does not
 // depend on the grid.
 //
-// fp32 (and bf16 above K = 128): the CUDA cores.  The row-resident kernel
+// fp32 (and bf16 above K = 160, or at 128 < K <= 160 in a shape the
+// tensor-core kernel does not take): the CUDA cores.  The row-resident kernel
 // (fp32, K <= 64): as the forward, one persistent block walks batch rows
 // with Wqkv and the bias resident in shared memory, and a row's x, do, q,
 // k, v, their gradients and one head's (K, K) P and dS never leave shared
@@ -469,12 +478,13 @@ int launch_tiled(const void* x, const void* wqkv, const void* bqkv, const void* 
   return (int)tossctr::launch_reduce(partials, grid, partial_floats(K, D), grads, s);
 }
 
-// ---- bf16 at K <= 128: the tensor-core kernel ----
+// ---- bf16 at K <= 160: the tensor-core kernel ----
 
 namespace tc {
 
+using tossctr::mha_mma::DbFor;
 using tossctr::mha_mma::Geo;
-using tossctr::mha_mma::kMaxKP;
+using tossctr::mha_mma::kMaxKPRegs;
 using tossctr::mha_mma::ldp;
 using tossctr::ptx::bf16;
 using tossctr::ptx::round_up;
@@ -484,33 +494,39 @@ constexpr int kWUnits = 48;
 
 // The kernel's form at KP = 64: two halves of mha_mma's 8 warps, each with
 // its own barrier through a row's head groups, dWqkv summed in shared
-// memory, the bias and two buffers of x resident.  At KP = 128 one half:
-// the row's P and dS buffers double, and dWqkv goes to the block's partial
-// in device memory, the bias is read from device memory, x has one buffer.
+// memory, the bias and two buffers of x resident.  At KP = 128 (kWide) one
+// half: the row's P and dS buffers double, and dWqkv goes to the block's
+// partial in device memory, the bias is read from device memory, x has one
+// buffer.  At KP = 160 (kReload) also one warp a query tile (kWarpsWide),
+// dbias into the block's partial in device memory (mha_mma.cuh
+// DbPartial), and Wqkv, x and the dx staging tile share the P and dS
+// buffers' space: Wqkv and x come in again after each row's heads.
 template <int KP>
 struct Form {
   static constexpr bool kWide = KP > 64;
+  static constexpr bool kReload = KP > kMaxKPRegs;
   static constexpr int kHalves = kWide ? 1 : 2;
-  static constexpr int kWarps = kHalves * tossctr::mha_mma::kWarps;
+  static constexpr int kWarps =
+      kHalves * (kReload ? tossctr::mha_mma::kWarpsWide : tossctr::mha_mma::kWarps);
   static constexpr int kThreads = kWarps * 32;
 };
 
 template <int KP>
 struct Layout {  // offsets in bytes
   int DP, LX, LW, LDW;
-  int w, b, bias, x, dout, q, k, v, dq, p, ds, sums, dw, total;
+  int w, b, bias, x, stage, dout, q, k, v, dq, p, ds, sums, dw, total;
   __host__ __device__ explicit Layout(const Geo& g) {
     using F = Form<KP>;
     DP = round_up(g.D, 16);  // x's columns, Wqkv's rows, padded with zeros
     LX = row_stride(DP);
     LW = row_stride(3 * g.NQ);
     LDW = 3 * g.NQ + 8;  // fp32: a quad's float2 pairs of 8 rows in two wavefronts
-    const int slab = KP * g.RS * 2;
+    const int slab = KP * g.RS * 2, wbytes = DP * LW * 2, xbytes = KP * LX * 2;
     w = 0;                                                    // Wqkv (DP, 3 NQ) bf16
-    b = w + DP * LW * 2;                                      // bqkv (3 NQ) fp32
+    b = w + (F::kReload ? 0 : wbytes);                        // bqkv (3 NQ) fp32
     bias = b + round_up(3 * g.NQ * 4, 16);                    // (KP, ldp(KP)) bf16
     x = bias + (F::kWide ? 0 : KP * ldp(KP) * 2);             // (KP, LX) buffers of x
-    dout = x + (F::kWide ? 1 : 2) * KP * LX * 2;              // do's slab
+    dout = x + (F::kReload ? 0 : (F::kWide ? 1 : 2) * xbytes);  // do's slab
     q = dout + slab;
     k = q + slab;  // k, then dk head by head; v, then dv
     v = k + slab;
@@ -520,6 +536,12 @@ struct Layout {  // offsets in bytes
     sums = ds + F::kWarps * 16 * ldp(KP) * 2;  // (KP / 16, 3, NQ) fp32: dbqkv by tile
     dw = sums + (KP / 16) * 3 * g.NQ * 4;      // (DP, LDW) fp32: the block's dWqkv
     total = dw + (F::kWide ? 0 : DP * LDW * 4);
+    stage = p;
+    if (F::kReload) {  // Wqkv, x, then the staging tile in the P and dS buffers' space
+      w = p;
+      x = w + wbytes;
+      stage = x + xbytes;
+    }
   }
 };
 
@@ -541,6 +563,7 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   float* b_s = reinterpret_cast<float*>(smem + L.b);
   bf16* bias_s = reinterpret_cast<bf16*>(smem + L.bias);
   bf16* x_s = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* stage = reinterpret_cast<bf16*>(smem + L.stage);  // (KP, LX): dx
   bf16* do_s = reinterpret_cast<bf16*>(smem + L.dout);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
   bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
@@ -552,27 +575,32 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   float* dw_s = reinterpret_cast<float*>(smem + L.dw);
   float* part = partials + (size_t)blockIdx.x * partial_floats(K, D);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int half = warp / tossctr::mha_mma::kWarps;
+  const int half = warp / (kWarpsF / F::kHalves);
   auto grad = [&](int which) -> const bf16* {  // [dq|dk|dv] after a row's heads
     return which == 0 ? dqs : (which == 1 ? ks : vs);
   };
 
   // zeros everywhere: pad rows and columns are never written with anything else
-  for (int i = tid; i < L.total / 16; i += kThreadsF)
-    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+  zero_bytes(smem, L.total);
   if constexpr (F::kWide)
     for (int i = tid; i < D * D3; i += kThreadsF) part[i] = 0.f;  // dWqkv's sums
+  if constexpr (F::kReload)
+    for (int i = tid; i < K * K; i += kThreadsF) part[D * D3 + D3 + i] = 0.f;  // dbias's
   __syncthreads();
-  for (int i = tid; i < D * D3; i += kThreadsF) {
-    const int d = i / D3;
-    w_s[d * LW + padded_col(geo, i - d * D3)] = wqkv[i];
-  }
   for (int i = tid; i < D3; i += kThreadsF) b_s[padded_col(geo, i)] = bqkv[i];
   if constexpr (!F::kWide)
     for (int i = tid; i < K * K; i += kThreadsF) {
       const int r = i / K;
       bias_s[r * ldp(KP) + i - r * K] = bias[i];
     }
+  if constexpr (F::kReload) {
+    stage_wqkv(w_s, LW, wqkv, geo);
+  } else {
+    for (int i = tid; i < D * D3; i += kThreadsF) {
+      const int d = i / D3;
+      w_s[d * LW + padded_col(geo, i - d * D3)] = wqkv[i];
+    }
+  }
   if ((int)blockIdx.x < B) {
     stage_x(x_s, LX, x + (size_t)blockIdx.x * K * D, K, D);
     stage_heads(do_s, dout + (size_t)blockIdx.x * K * D, geo);
@@ -581,7 +609,9 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
 
   const int npairs = 3 * NQ / 16;  // 16-column pairs of [q|k|v]
   const int mt = DP / 16;          // 16-row tiles of Wqkv
-  float db[KP / 8][4] = {};
+  DbFor<KP> db(part + D * D3 + D3, K);
+  const bf16* bias_src = F::kWide ? bias : bias_s;
+  const int bias_ld = F::kWide ? K : ldp(KP);
   int it = 0;
   for (int row = blockIdx.x; row < B; row += gridDim.x, ++it) {
     const int next = row + gridDim.x;
@@ -595,15 +625,23 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     project_qkv_mma<kWarpsF>(xb, LX, w_s, LW, b_s, qs, ks, vs, geo, DP);
     __syncthreads();
 
-    if constexpr (F::kWide)
-      row_grads<KP, DHP>(qs, ks, vs, do_s, bias, K, dqs, pbuf, dsbuf, db, sums, geo, row, scale,
-                         drop, half, F::kHalves);
-    else
-      row_grads<KP, DHP>(qs, ks, vs, do_s, bias_s, ldp(KP), dqs, pbuf, dsbuf, db, sums, geo,
-                         row, scale, drop, half, F::kHalves);
-    __syncthreads();  // every head is done: do's slab is free
+    row_grads<KP, DHP, kWarpsF / F::kHalves>(qs, ks, vs, do_s, bias_src, bias_ld, dqs, pbuf,
+                                             dsbuf, db, sums, geo, row, scale, drop, half,
+                                             F::kHalves);
+    __syncthreads();  // every head is done: do's slab (and at KP = 160 the buffers) is free
+    if constexpr (F::kReload) {  // Wqkv and this row's x again, into the buffers' space,
+      zero_bytes(smem + L.w, L.stage - L.w);  // over zeros: the pad entries are not copied
+      __syncthreads();
+      stage_wqkv(w_s, LW, wqkv, geo);
+      stage_x(x_s, LX, x + (size_t)row * K * D, K, D);
+      cp_async_commit();
+    }
     if (next < B) stage_heads(do_s, dout + (size_t)next * K * D, geo);
     cp_async_commit();
+    if constexpr (F::kReload) {
+      cp_async_wait<1>();  // Wqkv and x are in; the next row's do may still be on its way
+      __syncthreads();
+    }
 
     // ---- dWqkv += x^T round([dq|dk|dv]): unit (16 rows of Wqkv, 16
     // columns), each entry of the block's sums owned by one thread ----
@@ -639,7 +677,6 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
     }
 
     // ---- dx = round(round([dq|dk|dv]) Wqkv^T) into the staging tile ----
-    bf16* stage = pbuf;  // (KP, LX): free until the next row's heads
     for (int u = warp; u < QT * mt; u += kWarpsF) {
       const int m = u % QT, np = u / QT;
       float acc[2][4] = {};
@@ -659,7 +696,7 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
             pack_bf16(acc[jj][2], acc[jj][3]);
       }
     }
-    __syncthreads();  // dx staged; x's one buffer (KP = 128) is free
+    __syncthreads();  // dx staged; x's one buffer (KP >= 128) is free
     if (F::kWide && next < B) stage_x(x_s, LX, x + (size_t)next * K * D, K, D);
     cp_async_commit();
     {
@@ -679,7 +716,10 @@ mha_qkv_bwd_mma(const bf16* __restrict__ x, const bf16* __restrict__ wqkv,
   cp_async_wait<0>();
 
   // ---- this block's partials: dWqkv (D, 3D), dbqkv (3D), dbias (K, K) ----
-  flush_dbias<KP>(db, reinterpret_cast<float*>(smem + L.p), geo, part + D * D3 + D3);
+  if constexpr (F::kReload)
+    __syncthreads();  // every unit's column sums are in
+  else
+    flush_dbias<KP>(db, reinterpret_cast<float*>(smem + L.p), geo, part + D * D3 + D3);
   if constexpr (!F::kWide)
     for (int i = tid; i < D * D3; i += kThreadsF) {
       const int d = i / D3;
@@ -714,34 +754,38 @@ int launch(const void* x, const void* wqkv, const void* bqkv, const void* bias,
   return (int)tossctr::launch_reduce(partials, grid, partial_floats(K, D), grads, s);
 }
 
-// K padded to 64 or 128, the head to 8 or 16 columns
+// K padded to 64, 128 or 160, the head to 8 or 16 columns
 int launch_bf16(const void* x, const void* wqkv, const void* bqkv, const void* bias,
                 const void* dout, void* dx, float* partials, float* grads, int max_blocks,
                 int B, int K, int D, int H, float scale, Dropout drop, int device,
                 void* stream) {
   const bool narrow = D / H <= 8;
-  if (K <= 64)
-    return narrow ? launch<64, 8>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
-                                  K, D, H, scale, drop, device, stream)
-                  : launch<64, 16>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks,
-                                   B, K, D, H, scale, drop, device, stream);
-  return narrow ? launch<128, 8>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
-                                 K, D, H, scale, drop, device, stream)
-                : launch<128, 16>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B,
-                                  K, D, H, scale, drop, device, stream);
+#define TOSSCTR_LAUNCH(KP)                                                                     \
+  return narrow ? launch<KP, 8>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks, B, \
+                                K, D, H, scale, drop, device, stream)                          \
+                : launch<KP, 16>(x, wqkv, bqkv, bias, dout, dx, partials, grads, max_blocks,   \
+                                 B, K, D, H, scale, drop, device, stream)
+  if (K <= 64) TOSSCTR_LAUNCH(64);
+  if (K <= 128) TOSSCTR_LAUNCH(128);
+  TOSSCTR_LAUNCH(160);
+#undef TOSSCTR_LAUNCH
 }
 
 bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
 
-// the shapes the kernel takes: K <= 128, 4 <= dh <= 16, dh % 4 == 0, dWqkv
-// in at most kWUnits units, and x, dx (do) aligned for 16-byte copies
-// where D (dh) is a multiple of 8, else 8-byte ones
-bool takes(int K, int D, int H, const void* x, const void* dout, const void* dx) {
-  if (K > kMaxKP || !tossctr::mha_mma::head_ok(D / H)) return false;
+// the shapes the kernel takes: mha_mma.cuh bwd_unit_shape (K <= 160, 4 <=
+// dh <= 16, dh % 4 == 0; above K = 128 the padded heads at most 64
+// columns wide), dWqkv in at most kWUnits units, and x, dx (do) aligned
+// for 16-byte copies where D (dh) is a multiple of 8, else 8-byte ones
+// (Wqkv too at K > 128, whose kernel copies it by cp.async)
+bool takes(int K, int D, int H, const void* x, const void* wqkv, const void* dout,
+           const void* dx) {
   const Geo g(K, D, H);
+  if (!tossctr::mha_mma::bwd_unit_shape(g)) return false;
   if ((round_up(D, 16) / 16) * (3 * g.NQ / 16) > kWUnits) return false;
   const int xb = D % 8 == 0 ? 16 : 8, db = (D / H) % 8 == 0 ? 16 : 8;
-  return aligned(x, xb) && aligned(dx, xb) && aligned(dout, db);
+  return aligned(x, xb) && aligned(dx, xb) && aligned(dout, db) &&
+         (K <= kMaxKPRegs || aligned(wqkv, db));
 }
 
 }  // namespace tc
@@ -754,9 +798,12 @@ bool takes(int K, int D, int H, const void* x, const void* dout, const void* dx)
 // (max_blocks, D*3D + 3D + K*K) fp32 scratch; grads: (D*3D + 3D + K*K)
 // fp32 out = [dWqkv (D, 3D) | dbqkv (3D) | dbias (K, K)].  Dropout:
 // keep_thresh (0 = off), keep_scale, seed, as the forward got them.
-// bf16 runs the tensor-core kernel for K <= 128 (head width D / H a
-// multiple of 4 from 4 to 16, x, do and dx 16-byte aligned, 8 where D or
-// dh is not a multiple of 8) and the key-tiled one above; fp32 runs the
+// bf16 runs the tensor-core kernel where tc::takes says so (K <= 160,
+// head width D / H a multiple of 4 from 4 to 16, above K = 128 the heads
+// padded to at most 64 columns, dWqkv in kWUnits units, x, do and dx
+// 16-byte aligned, 8 where D or dh is not a multiple of 8, above K = 128
+// Wqkv too), refuses every other shape at K <= 128 and runs the key-tiled
+// kernel there above; fp32 runs the
 // row-resident kernel for K <= 64 and the key-tiled one above, and tiled
 // = 1 asks for the key-tiled one at any K (bf16 ignores it).  D <= 64, D
 // % 4 == 0; the key-tiled kernel also dh % 4 == 0.  Returns a cudaError_t
@@ -773,11 +820,10 @@ extern "C" int tossctr_fused_mha_qkv_bwd(const void* x, const void* wqkv, const 
   const Dropout drop(keep_thresh, keep_scale, seed);
   float* p = static_cast<float*>(partials);
   float* g = static_cast<float*>(grads);
-  if (dtype == 1 && K <= tc::kMaxKP) {
-    if (!tc::takes(K, D, H, x, dout, dx)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && tc::takes(K, D, H, x, wqkv, dout, dx))
     return tc::launch_bf16(x, wqkv, bqkv, bias, dout, dx, p, g, max_blocks, B, K, D, H, scale,
                            drop, device, stream);
-  }
+  if (dtype == 1 && K <= tc::kMaxKPRegs) return (int)cudaErrorInvalidValue;  // no other kernel
   const bool use_tiled = tiled != 0 || K > kMaxDim;
   if (use_tiled && (D / H) % 4 != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && !use_tiled)

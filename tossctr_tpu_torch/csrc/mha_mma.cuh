@@ -1,7 +1,7 @@
 // The warp-unit stages of the bf16 attention kernels: the forwards
-// (fused_mha.cu mha_fwd_mma, fused_mha_qkv.cu mha_qkv_fwd_chain) at K <=
-// 160 and the backwards (fused_mha_bwd.cu mha_bwd_mma, fused_mha_qkv_bwd.cu
-// mha_qkv_bwd_mma) at K <= 128.  A batch row's q, k, v (and do) come in
+// (fused_mha.cu mha_fwd_mma, fused_mha_qkv.cu mha_qkv_fwd_chain) and the
+// backwards (fused_mha_bwd.cu mha_bwd_mma, fused_mha_qkv_bwd.cu
+// mha_qkv_bwd_mma), all at K <= 160.  A batch row's q, k, v (and do) come in
 // whole as bf16 slabs, each head's columns padded to DHP = 8 or 16 with
 // zeros; a warp takes one (16-query tile, head) unit at a time.  The
 // stages:
@@ -53,18 +53,22 @@
 // sums, once for ds), the keep decisions kept as bits; round(ds * scale)
 // and round(p * keep) also go, as bf16 rows, to two shared buffers, which
 // the key-tile units read back with ldmatrix.trans for the products that
-// contract over queries.  dbias has one owner lane an entry: a warp
-// keeps the sums of its query tile over every head and row it takes in
-// registers, and the copies of a tile are added in warp order at the end
-// (flush_dbias), so a call repeats bit for bit.
+// contract over queries.  dbias has one owner lane an entry, so a call
+// repeats bit for bit: up to KP = 128 a warp keeps the sums of its query
+// tile over every head and row it takes in registers (DbRegs), and the
+// copies of a tile are added in warp order at the end (flush_dbias); at
+// KP = 160 the scores alone take 80 registers a lane, so the owner lane
+// adds each ds into the block's fp32 partial in device memory (DbPartial:
+// one-owner atomics, which stay in L2).
 //
-// Padding: K to KP = 64, 128 (both directions) or 160 (the forwards)
-// queries and keys.  Key columns >= K are -inf before the exp (p = 0, so
-// round(p * keep) = 0 and ds = 0 there); query rows >= K get finite
-// values that no output keeps (the backward sets their ds and
-// round(p * keep) to 0, so they add nothing to dbias, dk or dv); slab
-// rows past the staged ones are zero or finite.
+// Padding: K to KP = 64, 128 or 160 queries and keys.  Key columns >= K
+// are -inf before the exp (p = 0, so round(p * keep) = 0 and ds = 0
+// there); query rows >= K get finite values that no output keeps (the
+// backward sets their ds and round(p * keep) to 0, so they add nothing to
+// dbias, dk or dv); slab rows past the staged ones are zero or finite.
 #pragma once
+
+#include <type_traits>
 
 #include "mma_ptx.cuh"
 
@@ -75,13 +79,19 @@ using namespace tossctr::ptx;  // bf16, ldmatrix, mma, cp.async, tile addressing
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-// queries and keys padded to KP = 64 or 128: the backwards take K <= 128,
-// the forwards (which keep no dbias beside the scores) K <= 160.  A query
-// tile's scores are KP / 8 n-tiles, its P.V or dq KP / 16 k16 steps; a row
-// has at most KP / 16 query (and key) tiles
-constexpr int kMaxKP = 128;
+// queries and keys padded to KP = 64, 128 or 160: the backwards and the
+// forwards take K <= 160.  A query tile's scores are KP / 8 n-tiles, its
+// P.V or dq KP / 16 k16 steps; a row has at most KP / 16 query (and key)
+// tiles.  The backwards keep dbias in registers up to KP = kMaxKPRegs (and
+// have no other bf16 kernel there); at KP = 160 a block has kWarpsWide
+// warps, one a query tile, and dbias goes to device memory (DbPartial)
+constexpr int kMaxKP = 160;
 constexpr int kMaxKPFwd = 160;
-// the forwards' head-padded width H * DHP (the slabs' columns) at most this
+constexpr int kMaxKPRegs = 128;
+constexpr int kWarpsWide = 10;
+// the head-padded width H * DHP (the slabs' columns) at most this in the
+// forwards and in the backwards at KP = 160 (their slabs and buffers fit a
+// block)
 constexpr int kMaxFwdNQ = 64;
 // row stride of a (., KP) bf16 tile: the bias and the P, dS buffers
 __host__ __device__ constexpr int ldp(int KP) { return row_stride(KP); }
@@ -110,15 +120,23 @@ __host__ __device__ inline bool fwd_unit_shape(const Geo& g) {
   return g.K <= kMaxKPFwd && head_ok(g.dh) && g.H * g.DHP <= kMaxFwdNQ;
 }
 
-// The backward's walk of a row: its two kinds of unit meet at a barrier
-// per head group, so the H heads go in groups of G: unit u < units = G *
-// QT of a group is the warp u, query (and key) tile u % QT of head group *
-// G + u / QT.  Needs QT <= kWarps (K <= 128).  The forward has no key-tile
-// phase and walks its units freely.
+// The shapes the backwards' tensor-core kernels take: K <= kMaxKP and a
+// head width head_ok takes; above K = kMaxKPRegs also the padded heads at
+// most kMaxFwdNQ wide, as the forwards
+__host__ __device__ inline bool bwd_unit_shape(const Geo& g) {
+  return g.K <= kMaxKP && head_ok(g.dh) && (g.K <= kMaxKPRegs || g.H * g.DHP <= kMaxFwdNQ);
+}
+
+// The backward's walk of a row by NW warps: its two kinds of unit meet at
+// a barrier per head group, so the H heads go in groups of G: unit u <
+// units = G * QT of a group is the warp u, query (and key) tile u % QT of
+// head group * G + u / QT.  Needs QT <= NW (K <= 128 at 8 warps, 160 at
+// 10).  The forward has no key-tile phase and walks its units freely.
+template <int NW>
 struct BwdGroups {
   int G, n, units;
   __device__ explicit BwdGroups(const Geo& g) {
-    G = kWarps / g.QT < g.H ? kWarps / g.QT : g.H;
+    G = NW / g.QT < g.H ? NW / g.QT : g.H;
     n = (g.H + G - 1) / G;
     units = G * g.QT;
   }
@@ -150,13 +168,21 @@ __device__ __forceinline__ float div_rn(float e, float l, float r) {
   return __fmaf_rn(__fmaf_rn(-l, q, e), r, q);
 }
 
-// a barrier of the kWarps warps of one half of a block (id 1 + half)
+// a barrier of the NW warps of one half of a block (id 1 + half)
+template <int NW>
 __device__ __forceinline__ void half_sync(int half) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(kThreads) : "memory");
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "n"(NW * 32) : "memory");
 }
 
 // elements a copy piece of a (., n) bf16 row: 16 bytes where n % 8 == 0, else 8
 __device__ __forceinline__ int piece(int n) { return n % 8 == 0 ? 8 : 4; }
+
+// n bytes of shared memory (16-byte aligned, n a multiple of 16) to zeros,
+// by the block's threads
+__device__ __forceinline__ void zero_bytes(void* p, int n) {
+  for (int i = threadIdx.x; i < n / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
 
 // cp.async of one batch row's (K, D) bf16 tensor into a slab (head h in
 // columns h * DHP ..); rows >= K and the pad columns are not written
@@ -201,6 +227,22 @@ __device__ __forceinline__ void stage_x(bf16* dst, int ld, const bf16* __restric
   }
 }
 
+// cp.async of Wqkv (D, 3D) bf16 into a (., lw) tile with head-padded
+// columns (padded_col), a head's columns in 16- (or 8-) byte pieces; the
+// pad entries are not written
+__device__ __forceinline__ void stage_wqkv(bf16* dst, int lw, const bf16* __restrict__ src,
+                                           const Geo& g) {
+  const int pe = piece(g.dh), per_row = 3 * g.D / pe;
+  for (int i = threadIdx.x; i < g.D * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i - r * per_row) * pe;
+    bf16* d = dst + r * lw + padded_col(g, c);
+    if (pe == 8)
+      cp_async16(d, src + (size_t)r * 3 * g.D + c);
+    else
+      cp_async8(d, src + (size_t)r * 3 * g.D + c, true);
+  }
+}
+
 // The forwards' bias tile: the (K, K) bias into a (KP, ldp(KP)) bf16 tile
 // of shared memory, -inf in the columns >= K, zeros in the rows >= K
 // below the others (tile_softmax's kTile).  Called by all threads.
@@ -211,6 +253,46 @@ __device__ __forceinline__ void stage_bias_tile(bf16* dst, const bf16* __restric
   for (int i = threadIdx.x; i < KP * KP; i += blockDim.x) {
     const int r = i / KP, c = i - r * KP;
     dst[r * ldp(KP) + c] = c >= K ? ninf : (r < K ? bias[r * K + c] : __float2bfloat16_rn(0.f));
+  }
+}
+
+// A backward unit's 16 bias rows (queries q0 .. q0 + 15) by its warp, from
+// the (K, K) bias in device memory into a (16, ldp(KP)) tile in shared
+// memory laid out as stage_bias_tile lays out the whole: -inf in the
+// columns >= K, zeros in the rows >= K.  The rows < K go by cp.async in
+// 16-, 8- or 4-byte pieces as their alignment allows (an element at a
+// time where K is odd); the caller commits and waits for them, then
+// __syncwarp, before it reads.
+template <int KP>
+__device__ __forceinline__ void stage_bias_rows(bf16* dst, const bf16* __restrict__ bias, int K,
+                                                int q0) {
+  constexpr int LDP = ldp(KP);
+  const int lane = threadIdx.x & 31;
+  const int rows = K - q0 < 16 ? K - q0 : 16, pad = KP - K;
+  const unsigned a = (unsigned)(reinterpret_cast<uintptr_t>(bias) | (uintptr_t)(2 * K));
+  const int pe = a % 16 == 0 ? 8 : (a % 8 == 0 ? 4 : (a % 4 == 0 ? 2 : 1));  // elements a piece
+  const int per_row = K / pe;
+  for (int i = lane; i < rows * per_row; i += 32) {
+    const int r = i / per_row, c = (i - r * per_row) * pe;
+    bf16* d = dst + r * LDP + c;
+    const bf16* s = bias + (size_t)(q0 + r) * K + c;
+    if (pe == 8)
+      cp_async16(d, s);
+    else if (pe == 4)
+      cp_async8(d, s, true);
+    else if (pe == 2)
+      cp_async4(d, s);
+    else
+      *d = *s;
+  }
+  const bf16 ninf = __float2bfloat16_rn(__int_as_float(0xff800000));
+  for (int i = lane; i < 16 * pad; i += 32) {
+    const int r = i / pad;
+    dst[r * LDP + K + i - r * pad] = ninf;
+  }
+  for (int i = lane; i < (16 - rows) * K; i += 32) {
+    const int r = i / K;
+    dst[(rows + r) * LDP + i - r * K] = __float2bfloat16_rn(0.f);
   }
 }
 
@@ -643,32 +725,89 @@ __device__ __forceinline__ void query_tile_fwd_chain(const bf16* q, const bf16* 
   }
 }
 
+// Where a (query tile, head) unit's ds goes: add(j, hi, qr, kc, a, b) adds
+// ds at (query qr, keys kc, kc + 1), the lane's entries of n-tile j in the
+// row half hi (C fragment entries 2 hi, 2 hi + 1).
+//   DbRegs (KP <= kMaxKPRegs): into the lane's registers, which sum the
+//   warp's query tile over every head and row it takes; flush_dbias adds
+//   the warps' copies into the block's partial once, at the end.
+//   DbPartial (KP = 160): straight into the block's (K, K) fp32 partial in
+//   device memory, zeroed first, entries >= K dropped.  Each entry has one
+//   owner lane (a warp always takes the same query tile), whose atomics
+//   (float2 where aligned) land in program order: the same sums in the
+//   same order on every call.
+// Both are made from (the block's partial, K).
+template <int KP>
+struct DbRegs {
+  float v[KP / 8][4] = {};
+  __device__ DbRegs(float*, int) {}
+  __device__ __forceinline__ void add(int j, int hi, int, int, float a, float b) {
+    v[j][2 * hi] += a;
+    v[j][2 * hi + 1] += b;
+  }
+};
+
+struct DbPartial {
+  float* part;
+  int K;
+  bool pairs;  // K even and the partial 8-byte aligned: (kc, kc + 1) one float2
+  __device__ DbPartial(float* part_, int K_)
+      : part(part_), K(K_), pairs(K_ % 2 == 0 && reinterpret_cast<uintptr_t>(part_) % 8 == 0) {}
+  __device__ __forceinline__ void add(int, int, int qr, int kc, float a, float b) const {
+    if (qr >= K || kc >= K) return;
+    float* e = part + qr * K + kc;
+    if (pairs) {
+      atomicAdd(reinterpret_cast<float2*>(e), make_float2(a, b));
+    } else {
+      atomicAdd(e, a);
+      if (kc + 1 < K) atomicAdd(e + 1, b);
+    }
+  }
+};
+
+// the dbias form of a backward at KP
+template <int KP>
+using DbFor = typename std::conditional<(KP > kMaxKPRegs), DbPartial, DbRegs<KP>>::type;
+
 // The backward's (query tile, head) unit, by one warp: the queries q0 ..
 // q0 + 15 of head h (columns hc = h * DHP) of batch row `row`.  q, k, v, dout:
 // slabs; bias: the (K, K) bias with row stride bias_ld (shared memory or
-// device memory; rows and columns >= K are not read).  Writes round(dq)
+// device memory; rows and columns >= K are not read); at KP = 160 in
+// device memory, its 16 rows staged first into the unit's P buffer
+// (stage_bias_rows), whose pb - q0 * LDP is then the tile's base: the
+// buffers of the warps before it, one a tile.  Writes round(dq)
 // into the slab dq, round(ds * scale) and round(p * keep) into the unit's
-// 16 rows of the dS and P buffers (row stride ldp(KP)), adds ds to db (the
-// lane's entries of the tile's rows) and, where dq_sum is given, the
-// unrounded dq's column sums to dq_sum[0 .. DHP).
-template <int KP, int DHP>
+// 16 rows of the dS and P buffers (row stride ldp(KP)), adds ds to db and,
+// where dq_sum is given, the unrounded dq's column sums to dq_sum[0 .. DHP).
+template <int KP, int DHP, class Db>
 __device__ __forceinline__ void query_tile_grads(const bf16* q, const bf16* k, const bf16* v,
                                                  const bf16* dout, const bf16* bias, int bias_ld,
-                                                 bf16* dq, bf16* pb, bf16* dsb,
-                                                 float (&db)[KP / 8][4], float* dq_sum,
-                                                 const Geo& geo, int q0, int h, int row,
-                                                 float scale, const Dropout& drop) {
+                                                 bf16* dq, bf16* pb, bf16* dsb, Db& db,
+                                                 float* dq_sum, const Geo& geo, int q0, int h,
+                                                 int row, float scale, const Dropout& drop) {
   constexpr int NT = KP / 8, LDP = ldp(KP);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int K = geo.K, RS = geo.RS, hc = h * DHP;
   const int r0 = q0 + g, r1 = r0 + 8;  // the lane's two query rows
   const bool ok0 = r0 < K, ok1 = r1 < K;
   float p[NT][4];
-  tile_softmax<KP, DHP>(q, k, bias, bias_ld, geo, q0, hc, scale, p);
+  if constexpr (KP > kMaxKPRegs) {
+    // the bias rows into the unit's P buffer, which nothing reads until
+    // pass 2 writes P there, as a tile whose row 0 is query q0
+    stage_bias_rows<KP>(pb, bias, K, q0);
+    cp_async_commit();
+    head_product<DHP, NT>(q, k, RS, q0, 0, hc, p);
+    cp_async_wait<0>();
+    __syncwarp();
+    softmax_frag<KP, true>(p, pb - q0 * LDP, LDP, geo, q0, scale);
+    __syncwarp();  // every lane has read its bias before P lands over it
+  } else {
+    tile_softmax<KP, DHP>(q, k, bias, bias_ld, geo, q0, hc, scale, p);
+  }
 
   // ---- the row sums of dp * p, dp = (do_h v_h^T) * keep; bit 4j + i of
   // kept (32 a word): element (j, i) is kept ----
-  uint32_t kept[KP / 64] = {};
+  uint32_t kept[(NT + 7) / 8] = {};
   float s0 = 0.f, s1 = 0.f;
   const uint32_t hx0 = hash_base(row, r0, h, drop), hx1 = hx0 + 8u * kMixQ;
 #pragma unroll
@@ -712,7 +851,7 @@ __device__ __forceinline__ void query_tile_grads(const bf16* q, const bf16* k, c
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
         const int j = 2 * pp + jj;
-        float dsv[4], pdv[4];
+        float dsu[4], dsv[4], pdv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const bool ok = i < 2 ? ok0 : ok1;
@@ -722,12 +861,13 @@ __device__ __forceinline__ void query_tile_grads(const bf16* q, const bf16* k, c
             d = __fmul_rn(d, kv);
             pk = __fmul_rn(pk, kv);
           }
-          const float ds = ok ? __fmul_rn(p[j][i], __fsub_rn(d, i < 2 ? s0 : s1)) : 0.f;
-          db[j][i] += ds;
-          dsv[i] = __fmul_rn(ds, scale);
+          dsu[i] = ok ? __fmul_rn(p[j][i], __fsub_rn(d, i < 2 ? s0 : s1)) : 0.f;
+          dsv[i] = __fmul_rn(dsu[i], scale);
           pdv[i] = ok ? pk : 0.f;
         }
         const int c = 8 * j + 2 * t;
+        db.add(j, 0, r0, c, dsu[0], dsu[1]);
+        db.add(j, 1, r1, c, dsu[2], dsu[3]);
         const uint32_t d01 = pack_bf16(dsv[0], dsv[1]), d23 = pack_bf16(dsv[2], dsv[3]);
         a[2 * jj] = d01;
         a[2 * jj + 1] = d23;
@@ -796,28 +936,28 @@ __device__ __forceinline__ void key_tile_grads(const bf16* q, const bf16* dout, 
   }
 }
 
-// One batch row's head groups (BwdGroups), by one half of the block
-// (kWarps warps): half `half` of `halves` takes the groups half, half +
+// One batch row's head groups (BwdGroups<NW>), by one half of the block
+// (NW warps): half `half` of `halves` takes the groups half, half +
 // halves, ...; for each, the query-tile units, a barrier of the half, the
-// key-tile units, a barrier of the half.  Units are indexed by the warp within the half;
-// the P and dS buffers hold one 16-row unit a warp of the block.  sums (or
-// null): the fp32 column sums (KP / 16, 3, NQ) of dq, dk, dv, each entry
-// owned by the warp of its (tile, head) unit.  bias, bias_ld as
-// query_tile_grads takes them.  On entry the slabs are staged and
-// synchronised.
-template <int KP, int DHP>
+// key-tile units, a barrier of the half.  Units are indexed by the warp
+// within the half; the P and dS buffers hold one 16-row unit a warp of the
+// block.  sums (or null): the fp32 column sums (KP / 16, 3, NQ) of dq, dk,
+// dv, each entry owned by the warp of its (tile, head) unit.  bias,
+// bias_ld as query_tile_grads takes them.  On entry the slabs are staged
+// and synchronised.
+template <int KP, int DHP, int NW, class Db>
 __device__ __forceinline__ void row_grads(const bf16* q, bf16* k, bf16* v, const bf16* dout,
                                           const bf16* bias, int bias_ld, bf16* dq, bf16* pbuf,
-                                          bf16* dsbuf, float (&db)[KP / 8][4], float* sums,
-                                          const Geo& geo, int row, float scale,
-                                          const Dropout& drop, int half, int halves) {
+                                          bf16* dsbuf, Db& db, float* sums, const Geo& geo,
+                                          int row, float scale, const Dropout& drop, int half,
+                                          int halves) {
   constexpr int LDP = ldp(KP);
-  const int bw = threadIdx.x >> 5, warp = bw - half * kWarps;
+  const int bw = threadIdx.x >> 5, warp = bw - half * NW;
   const int slot = warp / geo.QT, tile = warp - slot * geo.QT;
   bf16* pb = pbuf + bw * 16 * LDP;
   bf16* dsb = dsbuf + bw * 16 * LDP;
-  const int head0 = (half * kWarps + slot * geo.QT) * 16 * LDP;  // the slot's first buffer row
-  const BwdGroups gr(geo);
+  const int head0 = (half * NW + slot * geo.QT) * 16 * LDP;  // the slot's first buffer row
+  const BwdGroups<NW> gr(geo);
   for (int grp = half; grp < gr.n; grp += halves) {
     const int h = grp * gr.G + slot;
     const bool on = warp < gr.units && h < geo.H;
@@ -825,31 +965,33 @@ __device__ __forceinline__ void row_grads(const bf16* q, bf16* k, bf16* v, const
     if (on)
       query_tile_grads<KP, DHP>(q, k, v, dout, bias, bias_ld, dq, pb, dsb, db, s, geo,
                                 16 * tile, h, row, scale, drop);
-    half_sync(half);
+    half_sync<NW>(half);
     if (on)
       key_tile_grads<KP, DHP>(q, dout, pbuf + head0, dsbuf + head0, geo, 16 * tile, h, k, v,
                               s ? s + geo.NQ : nullptr, s ? s + 2 * geo.NQ : nullptr);
-    half_sync(half);
+    half_sync<NW>(half);
   }
 }
 
-// The block's dbias partial (K, K) fp32: warp w of the block, whose warp
-// in its half is l = w % kWarps < units, holds in db the sums of query
-// tile l % QT over the heads it took; the copies of a tile are added in
-// warp order.  scratch: 16 * KP floats a warp of the block, shared memory
-// that nothing else uses any more.  Called by all threads.
+// The block's dbias partial (K, K) fp32 from DbRegs (halves of kWarps
+// warps): warp w of the block, whose warp in its half is l = w % kWarps <
+// units, holds the sums of query tile l % QT over the heads it took; the
+// copies of a tile are added in warp order.  scratch: 16 * KP floats a
+// warp of the block, shared memory that nothing else uses any more.
+// Called by all threads.
 template <int KP>
-__device__ __forceinline__ void flush_dbias(const float (&db)[KP / 8][4], float* scratch,
+__device__ __forceinline__ void flush_dbias(const DbRegs<KP>& db, float* scratch,
                                             const Geo& geo, float* __restrict__ part) {
   const int bw = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warps = blockDim.x >> 5, units = BwdGroups(geo).units;
+  const int warps = blockDim.x >> 5, units = BwdGroups<kWarps>(geo).units;
   __syncthreads();
   if (bw % kWarps < units) {
     float* s = scratch + bw * 16 * KP;
 #pragma unroll
     for (int j = 0; j < KP / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[(g + (i >> 1) * 8) * KP + 8 * j + 2 * t + (i & 1)] = db[j][i];
+      for (int i = 0; i < 4; ++i)
+        s[(g + (i >> 1) * 8) * KP + 8 * j + 2 * t + (i & 1)] = db.v[j][i];
   }
   __syncthreads();
   const int K = geo.K;

@@ -95,6 +95,12 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
                : "memory");
 }
 
+// 4 bytes global -> shared, asynchronous
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

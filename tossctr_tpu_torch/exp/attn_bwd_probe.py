@@ -1,9 +1,11 @@
 """Card probe: where the bf16 attention backwards' time goes.
 
-At the flagship's shapes (B = 8192, K = 64, D = 64, H = 8, bf16), or at
-the K = 120 config's (``--k 120``: the wider form, K padded to 128), it
-times, with CUDA events, on one card and in turns (as built, variants,
-variants, as built; twice):
+At the flagship's shapes (B = 8192, K = 64, D = 64, H = 8, bf16), at the
+K = 120 config's (``--k 120``: the wider form, K padded to 128) or at the
+K = 148 config's (``--k 152``: B = 4096, K padded to 160: 10 warps,
+dbias in device memory, each unit's bias rows staged), it times, with
+CUDA events, on one card and in turns (as built, variants, variants, as
+built; twice):
 
   A. ``fused_mha_qkv_bwd`` and ``fused_mha_bwd`` as built, with dropout
      (p = 0.1) and without: the gap is the keep hash's cost with the
@@ -19,11 +21,18 @@ variants, as built; twice):
      the projection, dWqkv, dx and the staging cost;
   E. ``fused_mha_qkv_bwd`` without the dWqkv and dx products (timed only;
      dbias held bit-equal to A's);
+  F. at ``--k 152`` both kernels with the unit reading its bias straight
+     from device memory in the softmax (the form before the staging:
+     every output bit-equal to A's), without the dbias atomics (dbias
+     wrong, timed only; the rest held bit-equal), and without the bias
+     rows' copy (timed only);
 
 beside the autograd backwards of the PyTorch yardsticks
 ``chip_smoke.py`` times.  The last line is a JSON object of the times.
 
-    python -m tossctr_tpu_torch.exp.attn_bwd_probe [--k 120]
+    python -m tossctr_tpu_torch.exp.attn_bwd_probe [--k 120 | --k 152]
+
+The variants build in parallel, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import importlib
 import json
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +51,8 @@ from ..ops import _build
 from ..ops.dropout import kernel_args
 from ._timing import cuda_time_ms, log
 
-B, D, H = 8192, 64, 8
+D, H = 64, 8
+BATCH = {64: 8192, 120: 8192, 152: 4096}  # K -> B: the flagship's and the configs'
 MASKED = 4  # the last key columns masked: the configs' top_k padded to a multiple of 8
 P_DROP = 0.1
 SEED = 1234567
@@ -66,12 +77,29 @@ VARIANTS = {
                               (f"{QKV}.cu", "for (int u = warp; u < QT * mt; u += kWarpsF)",
                                "for (int u = warp; u < 0; u += kWarpsF)")], (3,)),
 }
+# the KP = 160 form's parts (K > 128)
+BIAS_GLOBAL = ("mha_mma.cuh", "  if constexpr (KP > kMaxKPRegs) {\n    // the bias rows",
+               "  if constexpr (false) {\n    // the bias rows")
+NO_ATOMICS = ("mha_mma.cuh", "    if (qr >= K || kc >= K) return;", "    return;")
+NO_COPY = ("mha_mma.cuh", "for (int i = lane; i < rows * per_row; i += 32) {",
+           "for (int i = lane; i < 0; i += 32) {")
+WIDE_VARIANTS = {
+    "qkv_bias_global": (QKV, [BIAS_GLOBAL], (0, 1, 2, 3)),
+    "mha_bias_global": (MHA, [BIAS_GLOBAL], (0, 1, 2, 3)),
+    "qkv_no_dbias_atomics": (QKV, [NO_ATOMICS], (0, 1, 2)),
+    "mha_no_dbias_atomics": (MHA, [NO_ATOMICS], (0, 1, 2)),
+    "qkv_no_bias_copy": (QKV, [NO_COPY], ()),
+    "mha_no_bias_copy": (MHA, [NO_COPY], ()),
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k", type=int, default=64, help="K: 64 (the flagship) or 120")
+    ap.add_argument("--k", type=int, default=64, choices=sorted(BATCH),
+                    help="K: 64 (the flagship), 120 or 152")
     K = ap.parse_args(argv).k
+    B = BATCH[K]
+    variants = dict(VARIANTS, **(WIDE_VARIANTS if K > 128 else {}))
     if not torch.cuda.is_available():
         log("attn_bwd_probe needs a CUDA card")
         return 1
@@ -80,8 +108,9 @@ def main(argv=None) -> int:
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True).stdout.strip())
     _build.build([QKV, MHA])
-    fns = {n: _build.build_variant(lib, subs, f"probe_{n}")
-           for n, (lib, subs, _) in VARIANTS.items()}
+    with ThreadPoolExecutor(len(variants)) as ex:
+        fns = dict(zip(variants, ex.map(lambda n: _build.build_variant(
+            variants[n][0], variants[n][1], f"probe_{n}"), variants)))
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
 
@@ -102,7 +131,7 @@ def main(argv=None) -> int:
                  torch.empty(blocks, K * K, device=dev), torch.empty(K, K, device=dev))}
 
     def variant(name):
-        lib = VARIANTS[name][0]
+        lib = variants[name][0]
         if lib == QKV:
             ptrs = [t.data_ptr() for t in (x, w, b, bias, do, *out[QKV])]
             rc = fns[name](*ptrs, blocks, B, K, D, H, scale, *kernel_args(P_DROP, SEED), 0, 1,
@@ -123,7 +152,7 @@ def main(argv=None) -> int:
 
     built = {QKV: lambda p=P_DROP: fa.fused_mha_qkv_bwd(x, w, b, bias, do, H, p, SEED),
              MHA: lambda p=P_DROP: fa.fused_mha_bwd(q, k, v, bias, do, H, p, SEED)}
-    for name, (lib, _, same) in VARIANTS.items():
+    for name, (lib, _, same) in variants.items():
         variant(name)
         torch.cuda.synchronize()
         want = [t.flatten() for t in built[lib]()]
@@ -147,7 +176,7 @@ def main(argv=None) -> int:
     times = {}
     for _ in range(2):
         for lib in (QKV, MHA):
-            names = [n for n, v in VARIANTS.items() if v[0] == lib]
+            names = [n for n, v in variants.items() if v[0] == lib]
             for turn in ("built", *names, *names[::-1], "built"):
                 if turn == "built":
                     times.setdefault(f"{lib} built", []).append(cuda_time_ms(built[lib]))
@@ -164,7 +193,7 @@ def main(argv=None) -> int:
             f"(p={P_DROP}), {ms[f'{lib} built no dropout']:.4f} without dropout (the hash "
             f"{a - ms[f'{lib} built no dropout']:.4f}); library call {ms[f'{lib} library']:.4f}; "
             + "; ".join(f"{n} {ms[n]:.4f} ({ms[n] - a:+.4f})"
-                        for n in VARIANTS if n.startswith(short)))
+                        for n in variants if n.startswith(short)))
     log(json.dumps({"attn_bwd_probe": dict(B=B, K=K, D=D, H=H, ms=ms, runs=times)}))
     return 0
 

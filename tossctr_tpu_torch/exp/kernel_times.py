@@ -8,11 +8,14 @@ one call on one card to hold them against each other:
 
 Prints the card's name and power limit, then one JSON line: {"root": ...,
 "ms": {row: ms}, "fp32_sha1": {row: digest}, "bf16_sha1": {row: digest},
-"sweep_parts_ms": {part: ms}}.  The fp32 digests are those of the fp32
+"sweep_parts_ms": {part: ms}}.  The rows ``*_k152`` time the two
+attention backwards at the K = 148 config's shape (B = 4096, K = 152).
+The fp32 digests are those of the fp32
 outputs (the CUDA-core kernels) of the two attention forwards, of the
 block tail's forward and backward and of the FM-cross forward and
 backward (dz, dU, dV) on the same inputs, and of the (10M,
 128) fp32 table after one ``sweep_rows_add``; the bf16 ones those of the
+two bf16 attention backwards' outputs at the flagship's shape and of the
 (10M, 128) bf16 table after one ``sweep_rows_add``, one ``dense_sweep``
 or one ``sparse_sweep`` (W = 1024, the blocks the update's ids touch);
 each table a fresh clone; so two checkouts' bits can be held against
@@ -40,6 +43,7 @@ import sys
 
 B, K, D, H, FH = 8192, 64, 64, 8, 384  # the flagship: K = 60 padded to 64
 VALID_K = 60
+B152, K152 = 4096, 152  # cfgs/v3_k148_s1_tpu.yaml: K = 148 padded to 152, its last 4 masked
 N_NUM, N_CAT = 82, 35  # the QNN head's numeric and categorical fields
 FM_HEADS, FM_RANK, FM_OUT = 6, 16, 192
 TABLE_ROWS, TABLE_WIDTH = 10_000_000, 128
@@ -141,6 +145,10 @@ def main(argv=None) -> int:
             rnd(FH, std=0.1, dtype=f32), rnd(FH, D, std=FH ** -0.5), rnd(D, std=0.1, dtype=f32),
             1 + rnd(D, std=0.1, dtype=f32))
     dy = rnd(N, D)
+    x152, do152, q152, k152, v152 = (rnd(B152, K152, D) for _ in range(5))
+    bias152 = rnd(K152, K152, std=0.5, dtype=f32)
+    bias152[:, K152 - 4:] = -1e9
+    bias152 = bias152.to(bf)
     ffn = (rnd(N, D), rnd(D, FH, std=D ** -0.5), rnd(FH, std=0.1, dtype=f32),
            rnd(FH, D, std=FH ** -0.5), rnd(D, std=0.1, dtype=f32))
     z = rnd(B, 1 + 2 * N_NUM + N_CAT, D)
@@ -155,7 +163,12 @@ def main(argv=None) -> int:
     ops.sweep_rows_add([fresh], ids, [deltas])
     sweep32_sha1 = sha1(fresh)
     del fresh
-    bf16_sha1 = {}
+    bf16_sha1 = {
+        "fused_mha_qkv_bwd": sha1(torch.cat([t.flatten().float() for t in ops.fused_mha_qkv_bwd(
+            x, wqkv, bqkv, bias, do, H, P_DROP, SEED)])),
+        "fused_mha_bwd": sha1(torch.cat([t.flatten().float() for t in ops.fused_mha_bwd(
+            q, k, v, bias, do, H, P_DROP, SEED)])),
+    }
     for name, fn in (("sweep_rows_add", lambda t: ops.sweep_rows_add([t], ids, [deltas])),
                      ("dense_sweep", lambda t: ops.dense_sweep(t, SWEEP_W)),
                      ("sparse_sweep", lambda t: ops.sparse_sweep(t, SWEEP_W, blocks))):
@@ -171,6 +184,10 @@ def main(argv=None) -> int:
         "fused_block_tail_bwd": lambda: ops.fused_block_tail_bwd(*tail, dy, P_DROP, SEED),
         "fused_mha": lambda: ops.fused_mha(q, k, v, bias, H, P_DROP, SEED),
         "fused_mha_bwd": lambda: ops.fused_mha_bwd(q, k, v, bias, do, H, P_DROP, SEED),
+        "fused_mha_qkv_bwd_k152": lambda: ops.fused_mha_qkv_bwd(
+            x152, wqkv, bqkv, bias152, do152, H, P_DROP, SEED),
+        "fused_mha_bwd_k152": lambda: ops.fused_mha_bwd(q152, k152, v152, bias152, do152, H,
+                                                        P_DROP, SEED),
         "fused_ffn": lambda: ops.fused_ffn(*ffn, P_DROP, SEED),
         "fused_ffn_bwd": lambda: ops.fused_ffn_bwd(*ffn[:4], dy, P_DROP, SEED),
         "fm_cross_pallas": lambda: fm_cross_pallas_fwd(z, U, V),

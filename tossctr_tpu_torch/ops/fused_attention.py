@@ -24,14 +24,17 @@ wide: ``fused_mha``'s on the tensor cores (mma.sync on bf16 tiles),
 ``fused_mha_qkv``'s on FFMA chains in the plain version's order, bit-equal
 to the tiled CUDA-core kernel, since the bf16 training step it runs in is
 held to its plain version's bits (``csrc/fused_mha_qkv.cu``).  Both
-backwards run on the tensor cores at K <= 128 with a head width of 4, 8,
-12 or 16.  The other shapes, and fp32, run on the CUDA cores
-(``csrc/mha_core.cuh``): the forwards walk a row's queries in tiles that
-fit a block's shared memory, ``fused_mha``'s backward is key-tiled (one
-head at a time, its queries in tiles), ``fused_mha_qkv``'s row-resident
-for K <= 64 and key-tiled above.  The choice is by dtype and shape only.
-A shape whose layout fits no block, or that a kernel does not take, is
-refused before any launch.
+backwards run on the tensor cores at K <= 160 with a head width of 4, 8,
+12 or 16 (``bwd_mma_kernel``; above K = 128 also the padded heads at most
+64 columns wide, dbias summed in device memory instead of registers).
+The other shapes, and fp32, run on the CUDA cores (``csrc/mha_core.cuh``):
+the forwards walk a row's queries in tiles that fit a block's shared
+memory, ``fused_mha``'s backward is key-tiled (one head at a time, its
+queries in tiles), ``fused_mha_qkv``'s row-resident for K <= 64 and
+key-tiled above.  The choice is by dtype and shape only.  A shape whose
+layout fits no block, or that a kernel does not take, is refused before
+any launch; in bf16 at K <= 128 that is every shape the tensor-core
+backwards do not take.
 
 Both drop attention probabilities with the counter-hash mask of the
 absolute (batch row, query, key, head) coordinates (``ops/dropout.py``
@@ -54,18 +57,22 @@ from .dropout import attention_keep, kernel_args
 # head width _mma_head_ok takes and the heads' padded width at most
 # _MMA_FWD_MAX_NQ (csrc/mha_mma.cuh kMaxKPFwd, head_ok, kMaxFwdNQ), the
 # tiled CUDA-core ones at every other shape; the bf16 backwards run their
-# tensor-core kernels for K <= MMA_MAX_K and the key-tiled CUDA-core ones
-# above; fused_mha_qkv_bwd's fp32 row-resident kernel takes K <=
+# tensor-core kernels for K <= MMA_MAX_K (kMaxKP) where bwd_mma_kernel
+# says so, and refuse every other shape up to K = MMA_REGS_MAX_K
+# (kMaxKPRegs), above which the key-tiled CUDA-core ones take them;
+# fused_mha_qkv_bwd's fp32 row-resident kernel takes K <=
 # ROW_RESIDENT_MAX_K.  The backwards launch
 # as many persistent blocks as fit, at most BWD_BLOCKS_PER_SM an SM (the
 # partials' rows): two fit for fused_mha_bwd's tensor-core kernel at K <=
 # 64 (8 warps, 90 KB) and the key-tiled ones, one for its tensor-core
-# kernel at K <= 128 (192 KB), for fused_mha_qkv_bwd's tensor-core kernel
-# (16 warps and 223 KB at K <= 64, 8 warps and 208 KB at K <= 128) and
+# kernel at K <= 128 (192 KB) and K <= 160 (10 warps, 218 KB), for
+# fused_mha_qkv_bwd's tensor-core kernel (16 warps and 223 KB at K <= 64,
+# 8 warps and 208 KB at K <= 128, 10 warps and 226 KB at K <= 160) and
 # for its row-resident one
 MMA_FWD_MAX_K = 160
 _MMA_FWD_MAX_NQ = 64
-MMA_MAX_K = 128
+MMA_MAX_K = 160
+MMA_REGS_MAX_K = 128
 ROW_RESIDENT_MAX_K = 64
 BWD_BLOCKS_PER_SM = 2
 # the qkv tensor-core kernel's dWqkv, head-padded, in at most this many
@@ -100,6 +107,21 @@ def _mma_qkv_ok(D: int, n_heads: int) -> bool:
     with each head padded, in at most _MMA_WGRAD_UNITS 16 x 16 units."""
     nq = -(-_padded_heads(D, n_heads) // 16) * 16
     return _mma_head_ok(D // n_heads) and (-(-D // 16)) * (3 * nq // 16) <= _MMA_WGRAD_UNITS
+
+
+def bwd_mma_kernel(dtype, K: int, D: int, n_heads: int, qkv: bool) -> bool:
+    """Whether a backward (``fused_mha_qkv_bwd`` where ``qkv``, else
+    ``fused_mha_bwd``) of this dtype and shape runs its tensor-core kernel
+    on the card (csrc/mha_mma.cuh bwd_unit_shape, with the qkv kernel's
+    dWqkv bound): bf16, K <= MMA_MAX_K, a head width of 4, 8, 12 or 16,
+    for the qkv kernel dWqkv in _MMA_WGRAD_UNITS units, and above K =
+    MMA_REGS_MAX_K the padded heads at most _MMA_FWD_MAX_NQ columns wide.
+    Its tensors must also be aligned for its 16- or 8-byte copies: at K <=
+    MMA_REGS_MAX_K unaligned ones are refused, above it they go to the
+    key-tiled kernel, which takes every other shape there too."""
+    ok = _mma_qkv_ok(D, n_heads) if qkv else _mma_head_ok(D // n_heads)
+    return (dtype == torch.bfloat16 and K <= MMA_MAX_K and ok
+            and (K <= MMA_REGS_MAX_K or _padded_heads(D, n_heads) <= _MMA_FWD_MAX_NQ))
 
 
 def attention_scale(head_dim: int) -> float:
@@ -256,9 +278,11 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     """-> (dx, dwqkv, dbqkv, dbias), the last three fp32 sums over the
     batch: the kernel on a CUDA tensor (per-block fp32 partials reduced in
     a fixed order, so the result repeats bit for bit), the plain version on
-    a CPU tensor.  In bf16 the card runs the tensor-core kernel for K <=
-    128 (a head width of 4, 8, 12 or 16) and the key-tiled one above; in
-    fp32 the row-resident kernel for K <= 64 and the key-tiled one above.
+    a CPU tensor.  In bf16 the card runs the tensor-core kernel where
+    ``bwd_mma_kernel`` says so (K <= 160, a head width of 4, 8, 12 or 16),
+    refuses every other shape at K <= 128 and runs the key-tiled one for
+    it above; in fp32 the row-resident kernel for K <= 64 and the
+    key-tiled one above.
     ``tiled`` asks for the fp32 key-tiled kernel at any K (bf16 ignores
     it); the model never passes it, the card tests do, to hold the
     key-tiled kernel at small K.  ``blocks`` caps the persistent grid
@@ -274,12 +298,12 @@ def fused_mha_qkv_bwd(x, wqkv, bqkv, bias, do, n_heads: int, dropout_p: float = 
     B, K, D = x.shape
     if D > 64 or D % 4:
         raise ValueError(f"fused_mha_qkv_bwd kernel takes D <= 64, D % 4 == 0; got D={D}")
-    if x.dtype == torch.bfloat16 and K <= MMA_MAX_K:
-        if not _mma_qkv_ok(D, n_heads):
-            raise ValueError(f"the tensor-core fused_mha_qkv_bwd kernel takes a head width "
-                             f"D / n_heads of 4, 8, 12 or 16 (with dWqkv in "
-                             f"{_MMA_WGRAD_UNITS} units); got D={D}, n_heads={n_heads}")
-    elif (tiled or K > ROW_RESIDENT_MAX_K) and (D // n_heads) % 4:
+    if (x.dtype == torch.bfloat16 and K <= MMA_REGS_MAX_K
+            and not bwd_mma_kernel(x.dtype, K, D, n_heads, qkv=True)):
+        raise ValueError(f"the tensor-core fused_mha_qkv_bwd kernel takes a head width "
+                         f"D / n_heads of 4, 8, 12 or 16 (with dWqkv in "
+                         f"{_MMA_WGRAD_UNITS} units); got D={D}, n_heads={n_heads}")
+    if (tiled or K > ROW_RESIDENT_MAX_K) and (D // n_heads) % 4:
         raise ValueError(f"the key-tiled fused_mha_qkv_bwd kernel takes a head width "
                          f"D / n_heads divisible by 4; got {D // n_heads}")
     lib = load_library("fused_mha_qkv_bwd")
@@ -415,10 +439,12 @@ def fused_mha_fwd(q, k, v, bias, n_heads: int, dropout_p: float = 0.0, seed: int
 def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed: int = 0,
                   blocks=None):
     """-> (dq, dk, dv, dbias), dbias the fp32 sum over the batch and the
-    heads: on a CUDA tensor the tensor-core kernel in bf16 at K <= 128 (a
-    head width of 4, 8, 12 or 16), else the key-tiled one (per-block fp32
-    partials reduced in a fixed order, so the result repeats bit for
-    bit); the plain version on a CPU tensor.  ``blocks`` caps the persistent grid
+    heads: on a CUDA tensor the tensor-core kernel in bf16 where
+    ``bwd_mma_kernel`` says so (K <= 160, a head width of 4, 8, 12 or 16),
+    else the key-tiled one (per-block fp32 partials reduced in a fixed
+    order, so the result repeats bit for bit; in bf16 at K <= 128 the
+    shapes the tensor-core kernel does not take are refused); the plain
+    version on a CPU tensor.  ``blocks`` caps the persistent grid
     (default: as many as fit, at most BWD_BLOCKS_PER_SM an SM); dq, dk, dv
     do not depend on it, dbias's partials regroup."""
     _check_mha(q, k, v, bias, n_heads, dropout_p)
@@ -431,7 +457,8 @@ def fused_mha_bwd(q, k, v, bias, do, n_heads: int, dropout_p: float = 0.0, seed:
     B, K, D = q.shape
     if D > 64:
         raise ValueError(f"fused_mha_bwd kernel takes D <= 64; got D={D}")
-    if q.dtype == torch.bfloat16 and K <= MMA_MAX_K and not _mma_head_ok(D // n_heads):
+    if (q.dtype == torch.bfloat16 and K <= MMA_REGS_MAX_K
+            and not bwd_mma_kernel(q.dtype, K, D, n_heads, qkv=False)):
         raise ValueError(f"the tensor-core fused_mha_bwd kernel takes a head width D / n_heads "
                          f"of 4, 8, 12 or 16; got {D // n_heads}")
     lib = load_library("fused_mha_bwd")
