@@ -31,7 +31,8 @@
    ``sweep_rows_add`` at the flagship's table update (the (10M, 128) bf16
    table, 8192 x 64 ids, fp32 deltas) with uniform, zipf:1.0 and hot-id
    ids, against its plain version and ``Tensor.index_add_``, with its
-   wrapper's sort, search and kernels timed apart.
+   wrapper's sort, search and kernels timed apart, and at the split
+   tables' update (two (10M, 64) bf16 tables in one launch).
 4. Serving phase: a synthetic flagship test cache (3.5 batches of 8192
    rows), two full-width fold checkpoints (10M-row bf16 sequence table)
    from a seeded init with temperature calibrators, then ``infer_main``
@@ -88,7 +89,19 @@
    step in the sweep mode only), only selected rows changed and never the
    pad row, the sweep mode's step profiled, and each mode's fp32 512-row
    step against the CPU and against the plain versions on the card.
-9. K = 120 phase: ``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120,
+9. Reference-tables phase (``reference_tables_phase``): the flagship
+   with the split ``emb_att`` / ``emb_rep`` tables (two (10M, 64) bf16
+   tables) in ``rowwise_adagrad`` + ``table_update: sweep`` (timed
+   steps, one ``sweep_rows_add`` launch a step over both tables, only
+   selected rows changed, the update's own time) and in the dense-table
+   modes (``adamw``: timed steps, one profiled; ``adafactor``, ``sgd``:
+   one checked step each), each mode's 512-row step held against the CPU
+   and the plain versions (fp32; the dense modes also bf16 with the
+   pinned witness and the negative controls) on the flagship check's
+   batch and parameters, the tables cut to the rows it reads
+   (``compact_check``); then ``cfgs/synth_small.yaml`` (fp32, D = 32,
+   dense AdamW) through ``train_main`` for one fold and ``infer_main``.
+10. K = 120 phase: ``cfgs/v3_k120_s1_tpu.yaml`` at full width (K = 120,
    4 layers, S1 query): timed steps through the encoder kernels at K =
    120, the fp32 512-row step against the CPU and the plain versions, the
    weights served from a fold checkpoint through ``infer_main``, held
@@ -97,27 +110,29 @@
    4 layers): timed steps with their launch counts and profile, and the
    bf16 512-row step against the CPU and, with the ReLUs pinned and the
    witness's bands, against the plain versions on the card.
-10. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
+11. ``fused_mha`` module check: no config reaches ``fused_mha``, so the
    card runs it in its module: ``MultiHeadSelfAttention`` with
    ``fuse_qkv`` off (qkv Dense, ``fused_mha``) against ``fuse_qkv`` on
    (``fused_mha_qkv``) on the same parameters at the flagship shapes, the
    output and the gradients of x, the bias and every parameter, in bf16
    (one launch each of ``fused_mha`` and its backward) and in fp32.
-11. Scatter-probe phase: ``python -m tossctr_tpu_torch.exp.scatter_probe``'s
+12. Scatter-probe phase: ``python -m tossctr_tpu_torch.exp.scatter_probe``'s
    measurements on its three tables (the JAX probe's (10M, 64) bf16 with
    245,760 ids, the flagship's (10M, 128) with 524,288 uniform and with
    524,288 zipf:1.0 ids): ``index_add_``,
    the dense and the sparse table sweep at W = 1024, 4096, 16384, and
    ``sweep_rows_add``, timed with the launch counts read around them;
    then the two sweeps bit-equal to their plain versions on each table.
-12. Dropout-check phase: ``python -m
+13. Dropout-check phase: ``python -m
    tossctr_tpu_torch.exp.hw_dropout_device_check`` at the flagship
    geometry: the mask dumps bit-equal to the plain masks, the eight
    dropping encoder kernels in fp32 against a float64 oracle on the
    dumped masks (outputs and every gradient), the keep rates and the
    independence of the decisions within 1e-3, and the persistent kernels'
-   results against a grid of a few blocks; the dumps timed.
-13. Prints the ``kernels`` JSON line (the thirteen rows' kernels: the
+   results against a grid of a few blocks; the dumps bit-equal to their
+   plain versions at odd shapes too (K % 4 != 0, one and three heads, a
+   single row, element counts not a multiple of 4), and timed.
+14. Prints the ``kernels`` JSON line (the thirteen rows' kernels: the
    eleven ported kernels, the two table sweeps and the two mask dumps),
    then ``{"ok": true, "device": ...}``.
 
@@ -698,15 +713,79 @@ def sweep_kernel_row(cfg, dev):
         torch.cuda.empty_cache()
     del table, deltas, d_bf
     torch.cuda.empty_cache()
+    split = split_sweep_case(cfg, dev)
     head = cases[0]  # uniform ids: the headline row; every case beside it
     return dict(name="sweep_rows_add", route="cuda",
                 source="tossctr_tpu_torch/csrc/sweep_rows_add.cu",
                 replaces="tossctr_tpu/ops/pallas_scatter.py:224",
-                max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
-                plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=head["library_ms"],
+                max_abs_err=max([c["max_abs_err"] for c in cases] + [split["max_abs_err"]]),
+                ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+                bound_by=head["bound_by"], library_ms=head["library_ms"],
                 library_call="Tensor.index_add_ of the bf16 deltas (atomics, bf16 sums)",
-                cases=cases)
+                cases=cases, split_tables=split)
+
+
+def split_sweep_case(cfg, dev):
+    """``sweep_rows_add`` at the split tables' update (``model.
+    fused_seq_tables: false``): both (V, D) bf16 tables in one launch, N =
+    B x K uniform ids, one fp32 delta a table (the AdaGrad step's), held
+    against the plain version within one bf16 ulp per element as the fused
+    cases, untouched rows unchanged, a second run bit-equal; timed beside
+    the plain version, two ``index_add_`` calls of the bf16 deltas and the
+    bound (ids and both deltas read once, each touched row of both tables
+    read and written once)."""
+    import torch
+
+    from tossctr_tpu_torch.ops import sweep_rows_add, sweep_rows_add_reference
+
+    V, D = cfg.model.seq_vocab, cfg.model.emb_dim
+    K = -(-cfg.sequence.top_k // 8) * 8
+    N = cfg.train.batch_size * K
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tables = [torch.randn(V, D, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2)]
+    deltas = [torch.randn(N, D, generator=gen, device=dev) * 1e-3 for _ in range(2)]
+    d_bf = [x.to(torch.bfloat16) for x in deltas]
+    ids = sweep_ids("uniform", V, N, dev)
+    touched = torch.unique(ids)
+    got, again, want = ([t.clone() for t in tables] for _ in range(3))
+    sweep_rows_add(got, ids, deltas)
+    sweep_rows_add(again, ids, deltas)
+    sweep_rows_add_reference(want, ids, deltas)
+    torch.cuda.synchronize()
+    mask = torch.ones(V, dtype=torch.bool, device=dev)
+    mask[touched] = False
+    err = 0.0
+    for t, (g, a, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(g, a) or not torch.equal(g[mask], tables[t][mask]):
+            raise AssertionError(f"sweep_rows_add split table {t}: two runs differ, or an "
+                                 "untouched row changed")
+        g_t, w_t = g[touched].float(), w[touched].float()
+        err = max(err, float((g_t - w_t).abs().max()))
+        excess = (g_t - w_t).abs() - (2.0 ** -7 * torch.maximum(g_t.abs(), w_t.abs())
+                                      + 1e-5 * float(w_t.abs().max()))
+        if float(excess.max()) > 0:
+            raise AssertionError(f"sweep_rows_add split table {t}: beyond one bf16 ulp")
+    del again, want, mask
+    n_bytes = ids.numel() * ids.element_size() + 2 * N * D * 4 + 2 * touched.numel() * D * 4
+    b_ms, b_by = bound_ms(n_bytes, 0)
+
+    def library():
+        for g, x in zip(got, d_bf):
+            g.index_add_(0, ids, x)
+
+    case = dict(tables=2, V=V, D=D, N=N, ids="uniform", unique=touched.numel(),
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                ms=cuda_time_ms(lambda: sweep_rows_add(got, ids, deltas), iters=10),
+                plain_ms=cuda_time_ms(lambda: sweep_rows_add_reference(got, ids, deltas),
+                                      iters=3, warmup=1),
+                library_ms=cuda_time_ms(library, iters=10))
+    log(f"[kernel] sweep_rows_add split tables 2 x ({V}, {D}) bf16, N={N} uniform ids, fp32 "
+        f"deltas, one launch: {case['unique']} unique; max_abs_err {err:.6g} (band one bf16 "
+        f"ulp), repeats bit for bit; {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, two "
+        f"index_add_ {case['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del tables, deltas, d_bf, got, ids, touched
+    torch.cuda.empty_cache()
+    return case
 
 
 def separate_kernel_rows(cfg, dev, g):
@@ -1168,6 +1247,8 @@ def must_change(cfg):
     zero (which cannot change a step: AdaGrad's eps dwarfs its square
     root), so there either one will do."""
     t = cfg.train
+    if t.embedding_optimizer not in ("rowwise_adagrad", "sparse_sgd"):  # dense-mode tables
+        return "table"
     if t.embedding_optimizer == "sparse_sgd":
         return "table"
     if t.extra.get("exact_dedup", False):
@@ -1175,20 +1256,35 @@ def must_change(cfg):
     return "table" if t.extra.get("table_update", "auto") == "sweep" else "table or accumulator"
 
 
+def accum_rows(state, name, table):
+    """The AdaGrad accumulator of the sequence table ``name`` as (V,
+    halves), or a (V, 1) zero stand-in where the mode keeps none."""
+    import torch
+
+    opt = state.table_opt.get(name)
+    if opt is None:
+        return torch.zeros(table.shape[0], 1, device=table.device)
+    return opt.accum.view(opt.accum.shape[0], -1)
+
+
 def first_step(cfg, model, state, step, batch, tag, require_change=True):
     """The first train step, checked: it changes only table rows the batch
     selected, never the pad row, and (``require_change``) some dense
-    parameters and some rows of what ``must_change`` names.
-    -> (state, loss)."""
+    parameters and some rows of what ``must_change`` names.  Every
+    sequence table counts: the lane-fused one, or the split pair.  In the
+    dense-table modes too, on bf16 tables: a first step's decay of an
+    unselected row (lr x weight decay, 3e-8 relative at the flagship's)
+    is far below half a bf16 ulp, and its Adam, Adafactor or SGD step is
+    0.  -> (state, loss)."""
     import torch
 
-    from tossctr_tpu_torch.train.trainer import dense_params
+    from tossctr_tpu_torch.train.trainer import dense_params, is_sparse_mode, seq_tables
 
-    table = model.dare.emb_tables
-    opt = state.table_opt.get("emb_tables")  # sparse SGD keeps no accumulator
-    accum = opt.accum if opt is not None else torch.zeros(table.shape[0], 1, device=table.device)
+    tables = seq_tables(model)
+    accums = {n: accum_rows(state, n, t) for n, t in tables.items()}
     sel = selected_ids(model, batch)
-    before, acc_before = table.detach().clone(), accum.clone()
+    before = {n: t.detach().clone() for n, t in tables.items()}
+    acc_before = {n: a.clone() for n, a in accums.items()}
     dense_before = torch.cat([p.detach().reshape(-1).float() for p in dense_params(model).values()])
     t0 = time.time()
     state, loss = step(state, batch)
@@ -1196,20 +1292,28 @@ def first_step(cfg, model, state, step, batch, tag, require_change=True):
     log(f"[{tag}] step 1: loss {first:.6f}, {time.time() - t0:.2f} s (first call)")
     dense_after = torch.cat([p.detach().reshape(-1).float() for p in dense_params(model).values()])
     dense_moved = int((dense_after != dense_before).sum())
-    changed = torch.nonzero((table != before).any(dim=1))[:, 0]
-    acc_changed = torch.nonzero((accum != acc_before).any(dim=1))[:, 0]
+
+    def rows_where(diff):
+        return torch.unique(torch.cat([torch.nonzero(d.reshape(d.shape[0], -1).any(dim=1))[:, 0]
+                                       for d in diff]))
+
+    changed = rows_where([t != before[n] for n, t in tables.items()])
+    acc_changed = rows_where([a != acc_before[n] for n, a in accums.items()])
     pad = cfg.sequence.pad_id
     touched = torch.unique(sel)
     touched = touched[touched != pad]
     outside = changed[~torch.isin(changed, touched)]
-    pad_moved = bool((table[pad] != before[pad]).any() or (accum[pad] != acc_before[pad]).any())
+    pad_moved = any(bool((t[pad] != before[n][pad]).any() or
+                         (accums[n][pad] != acc_before[n][pad]).any())
+                    for n, t in tables.items())
+    kept = state.table_opt and is_sparse_mode(cfg)
     log(f"[{tag}] step 1: {dense_moved} of {dense_before.numel()} dense parameters moved; the "
         f"batch selected {touched.numel()} distinct non-pad ids; "
-        + (f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulator changed, "
+        + (f"{acc_changed.numel()} rows of the fp32 AdaGrad accumulators changed, "
            f"{int((~torch.isin(acc_changed, touched)).sum())} of them not selected; "
-           if opt is not None else "no accumulator (sparse SGD); ")
-        + f"{changed.numel()} bf16 table rows changed, {outside.numel()} of them not selected; "
-        f"pad row changed: {pad_moved}")
+           if kept else f"no accumulator ({cfg.train.embedding_optimizer}); ")
+        + f"{changed.numel()} rows of the {'/'.join(tables)} table(s) changed, {outside.numel()} "
+        f"of them not selected; pad row changed: {pad_moved}")
     need = must_change(cfg)
     moved = {"accumulator": acc_changed.numel(), "table": changed.numel(),
              "table or accumulator": acc_changed.numel() + changed.numel()}[need]
@@ -1836,6 +1940,345 @@ def stream_phase(train_cache, dev):
     return sweep_launches
 
 
+REF_STEPS = 3  # timed steps of the reference-tables phase's modes, after the checked first
+SYNTH_ROWS = 20_000  # synth_small's synthetic train rows (its fold: 4/5 of them)
+SYNTH_TEST_ROWS = 5_000
+SYNTH_NUM = 8  # synth_small's synthetic numeric features (and as many isna masks)
+
+
+def table_optimizers_check(dev, lr=1e-2, weight_decay=1e-4):
+    """The dense-mode table optimizers on the card against the CPU, on the
+    same fp32 parameters and gradients, two steps: torch's AdamW (as
+    ``make_train_state`` builds it), ``train/adafactor.py``'s Adafactor and
+    SGD, over a (V, 64) table (not factored), a (V, 128) one (factored), a
+    (35, 16, 64) projection and a vector, some table rows without a
+    gradient, at an lr at which each moves every tensor by far more than
+    the band.  The held one-step checks hold what the step feeds the
+    optimizer (the loss, the dense gradients, the rows' gradient), which
+    is the same for the three; this holds what they do with it.  Within
+    1e-6 of each tensor's largest magnitude (the same fp32 arithmetic,
+    the means summed in another order).  -> {optimizer: largest error}."""
+    import torch
+
+    from tossctr_tpu_torch.train.adafactor import SGD, Adafactor
+
+    rng = np.random.default_rng(3)
+    shapes = {"emb_att": (100_000, 64), "emb_tables": (50_000, 128), "proj": (35, 16, 64),
+              "vec": (64,)}
+    init = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in shapes.items()}
+    grads = []
+    for _ in range(2):
+        g = {k: rng.normal(0, 1, s).astype(np.float32) for k, s in shapes.items()}
+        for k in ("emb_att", "emb_tables"):
+            g[k][rng.random(shapes[k][0]) < 0.5] = 0.0  # rows the batch did not read
+        grads.append(g)
+
+    def run(name, device):
+        ps = {k: torch.nn.Parameter(torch.from_numpy(v.copy()).to(device)) for k, v in init.items()}
+        opt = (torch.optim.AdamW(list(ps.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay) if name == "adamw" else
+               Adafactor(ps) if name == "adafactor" else SGD(ps))
+        for i, g in enumerate(grads):
+            for k, p in ps.items():
+                p.grad = torch.from_numpy(g[k]).to(device)
+            step_lr = lr * (i + 1) / 2  # a warmup's two steps
+            if name == "adamw":
+                for group in opt.param_groups:
+                    group["lr"] = step_lr
+                opt.step()
+            else:
+                opt.step(step_lr)
+        return {k: p.detach().cpu() for k, p in ps.items()}
+
+    out = {}
+    for name in ("adamw", "adafactor", "sgd"):
+        card, cpu = run(name, dev), run(name, torch.device("cpu"))
+        errs = {k: float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max()) for k in cpu}
+        moved = {k: float((cpu[k] - torch.from_numpy(init[k])).abs().max()) for k in cpu}
+        out[name] = max(errs.values())
+        log(f"[reference tables] {name} on the card against the CPU, two fp32 steps: largest "
+            f"error / largest magnitude {', '.join(f'{k} {e:.3g}' for k, e in errs.items())} "
+            f"(band 1e-6; largest move {', '.join(f'{k} {m:.3g}' for k, m in moved.items())})")
+        if not out[name] <= 1e-6 or not min(moved.values()) > 1e-3:
+            raise AssertionError(f"{name} on the card departs from the CPU, or moved nothing")
+    return out
+
+
+def compact_check(cache, dev):
+    """The flagship one-step check's batch and parameters for the split
+    tables, with the tables cut to the rows the batch reads: the batch of
+    ``train_reference_check`` (the cache's first CHECK_ROWS rows) with its
+    sequence ids renumbered 0..U-1 in order (the pad id stays 0), and the
+    state_dict of the flagship check's model (the seeded fused model, fp32
+    tables) with the fused table's rows at those ids split into ``emb_att``
+    and ``emb_rep``.  The split model on it computes what the flagship
+    check's model computes on its batch (the same rows, positions and
+    selection; a row the batch does not read gets no gradient and no
+    sparse update), and a dense optimizer then sweeps U rows, not 10M.
+    -> (batch, state_dict on the CPU, U)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+    from tossctr_tpu_torch.data import BatchIterator
+    from tossctr_tpu_torch.models import init_params
+    from tossctr_tpu_torch.train.trainer import build_model
+
+    d = no_kernel_dropouts(flagship_config_dict())
+    d["model"]["table_dtype"] = "float32"
+    cfg = Config.from_dict(d)
+    batch = next(iter(BatchIterator(cache, batch_size=CHECK_ROWS, train=True)))
+    ids = np.unique(batch["seq"])
+    pad, D = cfg.sequence.pad_id, cfg.model.emb_dim
+    if ids[0] != pad:  # the pad id leads the renumbering
+        ids = np.concatenate([[pad], ids])
+    batch = dict(batch, seq=np.searchsorted(ids, batch["seq"]).astype(batch["seq"].dtype))
+    full = init_params(build_model(cfg, cache.dims, dev), seed=77)
+    sd = {k: v.detach() for k, v in full.state_dict().items()}
+    rows = sd.pop("dare.emb_tables")[torch.from_numpy(ids).to(dev)]
+    sd["dare.emb_att"], sd["dare.emb_rep"] = rows[:, :D].contiguous(), rows[:, D:].contiguous()
+    sd = {k: v.cpu() for k, v in sd.items()}
+    del full, rows
+    torch.cuda.empty_cache()
+    return batch, sd, len(ids)
+
+
+def reference_tables_phase(tmp, train_cache, dev):
+    """The reference-shaped tables and the dense-table modes.  At the
+    flagship's width (D = 64, B = 8192, every dropout on) with
+    ``model.fused_seq_tables: false``, two (10M, 64) bf16 tables:
+
+    (a) ``rowwise_adagrad`` + ``table_update: sweep``: REF_STEPS timed
+        steps after the checked first (only selected rows of either table
+        change, never the pad row), one ``sweep_rows_add`` launch a step
+        for both tables, one step profiled; the table update's own time;
+        the fp32 512-row step held against the CPU and the plain versions;
+    (b) dense ``adamw`` (the tables trainable, one AdamW over every
+        parameter, the EMA shadowing the tables): REF_STEPS timed steps
+        after the checked first, one profiled;
+    (c) ``adafactor`` and ``sgd``: one checked step each, and the three
+        dense optimizers on the card against the CPU
+        (``table_optimizers_check``);
+    and (b)'s 512-row step held against the CPU and the plain versions in
+    fp32 and bf16, (c)'s in bf16 (``train_reference_check``,
+    its bands, the pinned bf16 witness and the negative controls; the
+    dense modes' rows held by their gradient, ``_compare_steps``) on the
+    flagship check's batch and parameters with the tables cut to the rows
+    the batch reads (``compact_check``: a dense optimizer sweeps every
+    row, and at 10M rows the CPU's steps would take minutes).
+    (d) ``cfgs/synth_small.yaml``
+    (``synth_small_config_dict``: fp32, D = 32, K = 12 padded to 16, the
+    schema's default dense AdamW) through ``train_main`` for its one fold
+    on a synthetic cache, then ``infer_main`` of its checkpoint: launch
+    counts, the train log, the checkpoint and the submission.
+    -> the kernels' launches, summed over the phase's counted runs (each
+    held to its own expected counts)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict, synth_small_config_dict
+    from tossctr_tpu_torch.data import BatchIterator, ShardCache
+    from tossctr_tpu_torch.data.dataset import load_labels_groups_for_split
+    from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.models import init_params
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.train import sparse_embed
+    from tossctr_tpu_torch.train.cv_split import StratifiedGroupKFold
+    from tossctr_tpu_torch.train.trainer import build_model, seq_tables, train_main
+
+    t_phase = time.time()
+    total = {k: 0 for k in launch_counts()}
+
+    def counted(got):
+        for k, v in got.items():
+            total[k] += v
+
+    def split_dict(**train):
+        d = flagship_config_dict()
+        d["model"]["fused_seq_tables"] = False
+        d["train"].update(train)
+        return d
+
+    def full_width(d, tag):
+        cfg = Config.from_dict(copy.deepcopy(d))
+        t0 = time.time()
+        model = init_params(build_model(cfg, train_cache.dims, dev), seed=2028)
+        tables = seq_tables(model)
+        shapes = {n: (tuple(t.shape), t.dtype, t.requires_grad) for n, t in tables.items()}
+        dense = cfg.train.embedding_optimizer not in ("rowwise_adagrad", "sparse_sgd")
+        want = {n: ((cfg.model.seq_vocab, cfg.model.emb_dim), torch.bfloat16, dense)
+                for n in ("emb_att", "emb_rep")}
+        if shapes != want:
+            raise AssertionError(f"{tag}: the sequence tables {shapes} != {want}")
+        loader = BatchIterator(train_cache, batch_size=cfg.train.batch_size, train=True,
+                               shuffle=True, seed=cfg.seed, drop_last=cfg.train.drop_partial_batch)
+        batches = [to_device(b, dev) for b in loader][:4]
+        log(f"[{tag}] {cfg.train.embedding_optimizer}, split tables {shapes}: set-up "
+            f"{time.time() - t0:.1f} s")
+        return cfg, model, batches
+
+    def per_step(sweep=0):
+        return {k: (3 * REF_STEPS if k in RMS_ENCODER else sweep if k == "sweep_rows_add" else 0)
+                for k in launch_counts()}
+
+    # (a) the sparse AdaGrad step over the split pair through the sweep kernel
+    d = split_dict(exact_dedup=False, table_update="sweep")
+    cfg, model, batches = full_width(d, "reference tables sweep")
+    state, step, got = trained_steps(cfg, model, batches, REF_STEPS, "reference tables sweep",
+                                     per_step(sweep=REF_STEPS))
+    counted(got)
+    profile_step(state, step, batches[0], "reference tables sweep")
+    tables = seq_tables(model)
+    taps = {}
+    with torch.no_grad():
+        model(batches[0], taps=taps)
+    ids = taps["sel_ids"]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    grads = [torch.randn(taps[k].shape, generator=gen, device=dev) * 1e-3
+             for k in ("att_rows", "rep_rows")]
+    states = [state.table_opt[n] for n in tables]
+    update_ms = cuda_time_ms(lambda: sparse_embed.rowwise_adagrad_sweep_update(
+        list(tables.values()), states, ids, grads, lr=1e-4, pad_row=cfg.sequence.pad_id,
+        weight_decay=float(cfg.train.weight_decay)), iters=5)
+    log(f"[reference tables sweep] the table update alone (rowwise_adagrad_sweep_update: both "
+        f"(V,) accumulators and one sweep_rows_add over both tables, {ids.numel()} ids): "
+        f"{update_ms:.4f} ms")
+    del state, step, model, batches, tables, taps, ids, grads, states
+    torch.cuda.empty_cache()
+
+    # the held checks: the flagship check's batch and model, tables cut to
+    # the rows it reads
+    t0 = time.time()
+    chk_batch, chk_init, n_rows = compact_check(train_cache, dev)
+    log(f"[reference tables] the held checks run the flagship check's {CHECK_ROWS}-row batch "
+        f"and parameters with the split tables cut to the {n_rows} rows it reads "
+        f"({time.time() - t0:.1f} s)")
+
+    def held(train, amps):
+        dd = split_dict(**train)
+        dd["model"]["seq_vocab"] = n_rows
+        tag = f"reference tables {train.get('embedding_optimizer', 'rowwise_adagrad')}"
+        for amp in amps:
+            checked = train_reference_check(copy.deepcopy(dd), train_cache, dev, amp, tag=tag,
+                                            held_only=True, init=chk_init, batch=chk_batch)
+            if "pinned" in checked:
+                negative_controls(*checked["pinned"], tag=f"{tag} controls")
+            torch.cuda.empty_cache()
+
+    held(dict(exact_dedup=False, table_update="sweep"), ("none",))
+
+    # (b) dense AdamW over every parameter, the tables included
+    cfg, model, batches = full_width(split_dict(embedding_optimizer="adamw"),
+                                     "reference tables adamw")
+    state, step, got = trained_steps(cfg, model, batches, REF_STEPS, "reference tables adamw",
+                                     per_step())
+    counted(got)
+    profile_step(state, step, batches[0], "reference tables adamw")
+    del state, step, model, batches
+    torch.cuda.empty_cache()
+    held(dict(embedding_optimizer="adamw"), ("none", "bf16"))
+
+    # (c) Adafactor and SGD on the tables, AdamW on the rest: one step each;
+    # their held checks in bf16 (the fp32 ones hold the same records as
+    # adamw's: the loss and gradients the step feeds the optimizer), and the
+    # three optimizers themselves on the card against the CPU
+    table_optimizers_check(dev, weight_decay=float(cfg.train.weight_decay))
+    for opt in ("adafactor", "sgd"):
+        tag = f"reference tables {opt}"
+        cfg, model, batches = full_width(split_dict(embedding_optimizer=opt), tag)
+        state, step = trainer_for(cfg, model)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        # a first SGD step, lr x g, is far below half an ulp of a N(0, 1) bf16
+        # table row: it need not change one (its fp32 check below holds it)
+        state, first = first_step(cfg, model, state, step, batches[0], tag,
+                                  require_change=opt != "sgd")
+        got = launch_counts()
+        # 3 layers: the forward that reads the selection, then the step's
+        want = {k: (3 if k.endswith("_bwd") else 6) if k in RMS_ENCODER else 0 for k in got}
+        log(f"[{tag}] launches of the checked step: {got}, expected {want}")
+        if got != want or not np.isfinite(first):
+            raise AssertionError(f"{tag}: launches {got} != {want}, or loss {first}")
+        counted(got)
+        del state, step, model, batches
+        torch.cuda.empty_cache()
+        held(dict(embedding_optimizer=opt), ("bf16",))
+    log(f"[reference tables] the flagship-width modes and their checks: "
+        f"{time.time() - t_phase:.1f} s")
+
+    # (d) synth_small through the K-fold entry point and serving
+    t0 = time.time()
+    d = synth_small_config_dict()
+    d["exp_name"] = "chip_synth_small"
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    cfg0 = Config.from_dict(copy.deepcopy(d))
+    d["data"]["manifest_train"] = write_synth_cache_for(
+        cfg0, os.path.join(tmp, "cache", "synth_train"), SYNTH_ROWS, num_dim=SYNTH_NUM, seed=31)
+    d["data"]["manifest_test"] = write_synth_cache_for(
+        cfg0, os.path.join(tmp, "cache", "synth_test"), SYNTH_TEST_ROWS, num_dim=SYNTH_NUM,
+        seed=32)
+    cfg = Config.from_dict(d)
+    B, E, n_layers = cfg.train.batch_size, cfg.train.epochs, cfg.sequence.tfm.n_layers
+    y, groups = load_labels_groups_for_split(cfg.data.manifest_train)
+    tr, va = next(StratifiedGroupKFold(5, shuffle=True, random_state=cfg.seed)
+                  .split(np.zeros_like(y), y, groups))
+    steps, val_batches = E * -(-len(tr) // B), E * -(-len(va) // B)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    exp = train_main(cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t1
+    got = launch_counts()
+    want = {k: (n_layers * (steps if k.endswith("_bwd") else steps + val_batches)
+                if k in RMS_ENCODER else 0) for k in got}
+    log(f"[synth_small] train_main ({cfg.train.embedding_optimizer} tables, amp "
+        f"{cfg.amp}, D={cfg.model.emb_dim}, K={cfg.sequence.top_k} padded to 16, "
+        f"{n_layers} layers, B={B}, {E} epochs; {SYNTH_ROWS} synthetic rows, the first of 5 "
+        f"folds): {len(tr)} train rows, {len(va)} validation rows, {steps} steps and "
+        f"{val_batches} validation batches in {wall:.2f} s; launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"synth_small launches {got} != {want}")
+    counted(got)
+    with open(os.path.join(exp, "train_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        log("[synth_small] train_log.csv: " + ", ".join(f"{k}={v}" for k, v in r.items()))
+    if [(r["epoch"], r["split"]) for r in rows] != [
+            (str(e), s) for e in range(1, E + 1) for s in ("val", "val_cal")]:
+        raise AssertionError(f"synth_small train_log.csv rows {rows}")
+    if not all(np.isfinite(float(r[k])) for r in rows for k in ("AP", "WLL", "Score")):
+        raise AssertionError("synth_small: non-finite validation metrics")
+    ck = os.path.join(exp, "ckpt_folds_0")
+    files = sorted(os.listdir(ck))
+    ema = torch.load(os.path.join(ck, "ema.pt"), map_location="cpu", weights_only=True)
+    log(f"[synth_small] checkpoint {ck}: {files}; the EMA weights shadow the table too: "
+        f"{'dare.emb_tables' in ema}")
+    if files != ["calibrator.json", "ema.pt", "meta.json", "params.pt"] or (
+            "dare.emb_tables" not in ema):
+        raise AssertionError("the synth_small checkpoint is not complete")
+    test_cache = ShardCache(cfg.data.manifest_test)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.time()
+    path = infer_main(cfg, device=dev)
+    served = launch_counts()
+    n_batches = -(-len(test_cache) // B)
+    want = {k: n_layers * n_batches if k in RMS_ENCODER and not k.endswith("_bwd") else 0
+            for k in served}
+    log(f"[synth_small] infer_main served the fold: {path} in {time.time() - t1:.2f} s; "
+        f"launches {served}, expected {want}")
+    if served != want:
+        raise AssertionError(f"synth_small serving launches {served} != {want}")
+    probs = check_submission(path, test_cache)
+    log(f"[synth_small] submission: {len(probs)} rows, probabilities in [{probs.min():.6f}, "
+        f"{probs.max():.6f}], mean {probs.mean():.6f}; the part took {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"[reference tables] phase wall time {time.time() - t_phase:.1f} s")
+    return total
+
+
 def mha_module_check(cfg, dev):
     """``MultiHeadSelfAttention`` with ``fuse_qkv`` off (the qkv Dense, a
     split, ``fused_mha``) against ``fuse_qkv`` on (``fused_mha_qkv``) on the
@@ -1905,6 +2348,10 @@ def mha_module_check(cfg, dev):
 
 
 HASH_OPS = 17  # integer operations a mask element: four products and adds, fmix32, compare
+# the mask dumps' odd shapes, (B, K, H) of the attention mask and (N, F) of the
+# FFN's: K % 4 != 0 with one and three heads, a single row, element counts
+# that are not multiples of 4
+DUMP_ODD_SHAPES = ((3, 13, 1, 1, 7), (1, 7, 3, 5, 3), (1, 61, 8, 37, 385), (2, 64, 3, 1, 4099))
 
 
 def scatter_probe_phase(dev):
@@ -1953,8 +2400,9 @@ def scatter_probe_phase(dev):
 def dropout_check_phase(dev):
     """The dropout-mask device check (``tossctr_tpu_torch.exp.
     hw_dropout_device_check``) at the flagship geometry, with the launch
-    counts read around it; then the two dump kernels against their plain
-    masks and timed, outside the counted run.  -> the ``kernels`` rows of
+    counts read around it; then the two dump kernels bit-equal to their
+    plain masks at the odd shapes of DUMP_ODD_SHAPES and at the flagship
+    geometry, and timed there, outside the counted run.  -> the ``kernels`` rows of
     the two dumps."""
     import torch
 
@@ -1982,6 +2430,17 @@ def dropout_check_phase(dev):
         raise AssertionError(f"dropout check launches {launches} != {expected}")
     geo = report["geometry"]
     B, K, H, N, F = geo["B"], geo["K"], geo["H"], geo["N"], geo["F"]
+    for b, k, h, n, f in DUMP_ODD_SHAPES:
+        for kind, got, want in (
+                ("attention", dump_attention_keep(b, k, h, 0.1, DROP_SEED, dev),
+                 attention_keep(b, k, h, 0.1, DROP_SEED, device=dev)),
+                ("ffn", dump_ffn_keep(n, f, 0.1, DROP_SEED, dev),
+                 ffn_keep(n, f, 0.1, DROP_SEED, device=dev))):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{kind} mask dump at {tuple(got.shape)} differs from its "
+                                     "plain version")
+    log(f"[dropout check] both dumps bit-equal to their plain versions at the odd shapes "
+        f"(B, K, H / N, F) {DUMP_ODD_SHAPES}")
     rows = {}
     for name, dump, plain, args, replaces in (
             ("dump_attention_keep", dump_attention_keep, attention_keep,
@@ -2268,28 +2727,38 @@ def same_relu_rows(sides, batch, rows):
 def _step_record(cfg, model, init, batch, device, ids, variant=None):
     """One train step of ``model`` from the parameters ``init`` on
     ``batch``: the loss, each dense gradient, and the table rows and
-    AdaGrad accumulator at ``ids`` before and after.  ``variant``:
+    AdaGrad accumulator at ``ids`` before and after (every sequence table's
+    rows side by side; in the dense-table modes also the rows' gradient,
+    ``row_grads``).  ``variant``:
     "oneDNN off" runs the CPU's matrix products through PyTorch's own
     kernels instead of oneDNN's; "plain versions" runs the card's step
     with the plain versions of the kernels; a callable returns the
     context manager the step runs in."""
     import torch
 
-    from tossctr_tpu_torch.train.trainer import dense_params
+    from tossctr_tpu_torch.train.trainer import dense_params, seq_tables
 
     model.load_state_dict(init)
     state, step = trainer_for(cfg, model)
-    table = model.dare.emb_tables
+    tables = seq_tables(model)
     on = ids.to(device)
-    before = table[on].double().cpu()
+
+    def rows():  # every sequence table's rows at the ids, side by side
+        return torch.cat([t.detach()[on].double().cpu() for t in tables.values()], dim=1)
+
+    before = rows()
     ctx = variant if callable(variant) else {
         None: contextlib.nullcontext, "plain versions": plain_versions_on_card,
         "oneDNN off": lambda: torch.backends.mkldnn.flags(enabled=False)}[variant]
     with ctx():
         state, loss = step(state, to_device(batch, device))
-    opt = state.table_opt.get("emb_tables")
-    rec = dict(loss=float(loss), before=before, rows=table[on].double().cpu(),
-               accum=None if opt is None else opt.accum[on].double().cpu(),
+    accs = [accum_rows(state, n, t)[on].double().cpu() for n, t in tables.items()
+            if n in state.table_opt]
+    dense_tables = all(t.grad is not None for t in tables.values())
+    rec = dict(loss=float(loss), before=before, rows=rows(),
+               accum=torch.cat(accs, dim=1) if accs else None,
+               row_grads=torch.cat([t.grad[on].double().cpu() for t in tables.values()], dim=1)
+               if dense_tables else None,
                grads={n: p.grad.double().cpu() for n, p in dense_params(model).items()})
     del state, step
     if device.type == "cuda":
@@ -2309,7 +2778,7 @@ def grad_norm_on(cfg, model, b):
     """``_grad_norm`` of ``model`` as it stands on the batch ``b`` of
     tensors on its device."""
     from tossctr_tpu_torch.train.loss import bce_wll_style
-    from tossctr_tpu_torch.train.trainer import dense_params
+    from tossctr_tpu_torch.train.trainer import ROW_TAPS, dense_params
 
     taps = {}
     z, _, aux = model(b, taps=taps)
@@ -2317,7 +2786,8 @@ def grad_norm_on(cfg, model, b):
     valid = b.get("valid")
     (bce_wll_style(z, b["y"], valid) + w * bce_wll_style(aux, b["y"], valid)).backward()
     grads = [p.grad for p in dense_params(model).values() if p.grad is not None]
-    total = sum(float(g.double().square().sum()) for g in grads + [taps["table_rows"].grad])
+    grads += [taps[k].grad for k in ROW_TAPS.values() if k in taps]
+    total = sum(float(g.double().square().sum()) for g in grads)
     for p in model.parameters():
         p.grad = None
     return total ** 0.5
@@ -2336,7 +2806,9 @@ def log_grad_norms(cfg, card_model, init, batch, dev, nonempty, rows_of, tag, am
 def _compare_steps(c, r):
     """Step record ``c`` against the reference record ``r``: loss, every
     dense gradient, and over the ids whose accumulator is at least
-    ACCUM_FLOOR of the largest the accumulator and the rows' update."""
+    ACCUM_FLOOR of the largest the accumulator and the rows' update (sparse
+    SGD: the ids whose update is; the dense-table modes: the rows' gradient
+    over the ids whose gradient is, as "delta")."""
 
     def rel(a, b):
         return float((a - b).norm() / b.norm()) if float(b.norm()) > 0 else float((a - b).norm())
@@ -2349,6 +2821,23 @@ def _compare_steps(c, r):
     got["grad_tensor"] = max(per.values())
     got["worst"] = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     got["pbias"] = {n: e for n, e in per.items() if "pbias" in n}
+    got["delta_of"] = "row update"
+    if r.get("row_grads") is not None:
+        # the dense-table modes: the rows' gradient, the optimizer's input, over
+        # the ids whose gradient is not negligible.  Their first update is no
+        # measure of it: AdamW's and Adafactor's move an element by about
+        # lr x sign(g) (Adafactor's eps is 1e-30 on g^2), so a gradient
+        # within rounding of 0 moves it a whole step either way, and an SGD
+        # step lr x g falls below half an ulp of most fp32 rows
+        acc = r["row_grads"].abs().max(dim=1).values
+        big = acc >= ACCUM_FLOOR * float(acc.max())
+        got["accum_all"] = got["accum"] = got["acc_max"] = 0.0
+        got["accum_halves"] = [0.0, 0.0]
+        got["n_big"], got["n_ids"] = int(big.sum()), int(acc.numel())
+        got["delta"] = rel(c["row_grads"][big], r["row_grads"][big])
+        got["delta_max"] = float(r["row_grads"].abs().max())
+        got["delta_of"] = "row gradient"
+        return got
     if r["accum"] is not None:
         acc = r["accum"].max(dim=1).values
         big = acc >= ACCUM_FLOOR * float(acc.max())
@@ -2379,8 +2868,8 @@ def log_compare(head, g, ra, rb):
         + f"; over the {g['n_big']} of {g['n_ids']} ids whose accumulator is >= "
         f"{ACCUM_FLOOR:g} of the largest: accumulator {g['accum']:.3g} (att, rep halves "
         f"{g['accum_halves'][0]:.3g}, {g['accum_halves'][1]:.3g}; all {g['n_ids']} ids "
-        f"{g['accum_all']:.3g}), row update {g['delta']:.3g} (largest accumulator "
-        f"{g['acc_max']:.3g}, largest |update| {g['delta_max']:.3g})")
+        f"{g['accum_all']:.3g}), {g['delta_of']} {g['delta']:.3g} (largest accumulator "
+        f"{g['acc_max']:.3g}, largest |{g['delta_of'].split()[1]}| {g['delta_max']:.3g})")
 
 
 def negative_controls(pin, bands, tag="controls"):
@@ -2402,7 +2891,8 @@ def negative_controls(pin, bands, tag="controls"):
     return out
 
 
-def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, bands=None):
+def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, bands=None,
+                          init=None, batch=None):
     """One step from one state on a CHECK_ROWS-row batch, in the compute
     dtype of ``amp``, kernel dropouts on (the counter-hash masks are the
     same everywhere) and the other dropouts off: the card's step against
@@ -2437,9 +2927,11 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, band
     ReLU sign flips are reported beside, not held), and the bands of None
     come from the perturbation witness measured in the same run.
     ``held_only``: the two held comparisons alone.  ``bands``: in place of
-    CHECK_BANDS[amp] (the K = 148 phase's K148_BANDS).  -> the numbers, by
-    name; in bf16 also "pinned": (the ``PinnedPlain``, its bands), for
-    ``negative_controls``."""
+    CHECK_BANDS[amp] (the K = 148 phase's K148_BANDS).  ``init`` (a
+    state_dict) and ``batch`` (numpy arrays): in place of the seeded
+    parameters and the cache's first CHECK_ROWS rows (``compact_check``).
+    -> the numbers, by name; in bf16 also "pinned": (the ``PinnedPlain``,
+    its bands), for ``negative_controls``."""
     import torch
 
     from tossctr_tpu_torch.config import Config
@@ -2452,9 +2944,14 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, band
     d["model"]["table_dtype"] = "float32"
     cfg = Config.from_dict(d)
     bands = bands or CHECK_BANDS[amp]
-    batch = next(iter(BatchIterator(cache, batch_size=CHECK_ROWS, train=True)))
+    if batch is None:
+        batch = next(iter(BatchIterator(cache, batch_size=CHECK_ROWS, train=True)))
     cpu = torch.device("cpu")
-    card_model = init_params(build_model(cfg, cache.dims, dev), seed=77)
+    if init is None:
+        card_model = init_params(build_model(cfg, cache.dims, dev), seed=77)
+    else:
+        card_model = build_model(cfg, cache.dims, dev)
+        card_model.load_state_dict(init, strict=True)
     init = {k: v.to("cpu", copy=True) for k, v in card_model.state_dict().items()}
     cpu_model = build_model(cfg, cache.dims, cpu)
     cpu_model.load_state_dict(init)
@@ -2718,6 +3215,9 @@ def main() -> int:
         t0 = time.time()
         stream_launches = stream_phase(train_cache, dev)
         stream_wall = time.time() - t0
+        t0 = time.time()
+        ref_launches = reference_tables_phase(tmp, train_cache, dev)
+        ref_wall = time.time() - t0
         del train_cache
         torch.cuda.empty_cache()
         t0 = time.time()
@@ -2731,7 +3231,9 @@ def main() -> int:
         fold_wall = time.time() - t0
 
     for name, r in kernels.items():
-        # each kernel's launches on the path that is its own: the RMSNorm
+        # launches_reference_tables: the reference-tables phase's counted
+        # runs summed (each held to its own expected counts there).
+        # Each kernel's launches on the path that is its own: the RMSNorm
         # encoder kernels' in the training phase, fused_ffn's in the
         # LayerNorm phase, fused_mha's in its module check (no config serves
         # it: its serving count is the serving phase's, read there), the FM
@@ -2756,9 +3258,11 @@ def main() -> int:
         r["launches_layernorm"] = layer_launches[name]
         r["launches_k120"], r["launches_k120_serving"] = k120_launches[name], k120_served[name]
         r["launches_k148"] = k148_launches[name]
+        r["launches_reference_tables"] = ref_launches[name]
     total = time.time() - T_START
     log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s, the "
         f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s, the "
+        f"reference-tables phase {ref_wall:.1f} s, the "
         f"K = 120 phase {k120_wall:.1f} s, the K = 148 phase {k148_wall:.1f} s, the scatter "
         f"probe {probe_wall:.1f} s and the dropout check {dump_wall:.1f} s of it")
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -117,6 +117,13 @@ FM_CATS = {"cat_cols": ["gender", "inventory_id", "l_feat_1", "l_feat_2", "l_fea
                             "l_feat_3": 15}}
 
 
+# a small QNN-alpha head with its dropout off, for the train-step tests
+# whose JAX side compiles a step per config: the head's paths have tests
+# of their own, and it halves the flax model's trace
+SMALL_QNN = {"dropout": 0.0, "heads": 1, "rank": 2, "proj_dim": 8, "mlp_hidden": [8],
+             "use_se": False}
+
+
 def dims_for(d: dict) -> dict:
     return {"X_num": NUM_DIM, "X_mask": NUM_DIM, "X_cat": len(d["data"]["cat_cols"]),
             "seq_len": d["sequence"]["max_len"]}
@@ -196,6 +203,41 @@ def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
         "the variables do not fit the model"
     # a copy: a JAX train step donates its state's buffers
     return model, jax.tree_util.tree_map(np.array, variables)
+
+
+def flax_variables_from_port(port, jax_model, batch) -> dict:
+    """The port model ``port``'s parameters as the flax variables of
+    ``jax_model`` ({"params": ...} of numpy arrays): its parameter names
+    are the flax paths with ``.`` for ``/`` (``convert.py``).  The tree,
+    shapes and dtypes are held against ``jax_model.init`` traced on
+    ``batch`` (``jax.eval_shape``: traced, not compiled), so a test can
+    start both packages from the port's seeded parameters without paying
+    the flax init's compile."""
+    import jax
+
+    shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0), batch,
+                                                   deterministic=True))["params"]
+    sd = {k: v.detach() for k, v in port.state_dict().items()}
+    used = set()
+
+    def build(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            name = f"{prefix}.{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = build(v, name)
+                continue
+            a = sd[name].float().clone().numpy()  # a copy: the port updates in place
+            if str(v.dtype) == "bfloat16":
+                a = a.astype(v.dtype)
+            assert a.shape == v.shape and a.dtype == v.dtype, (name, a.shape, v.shape, v.dtype)
+            out[k] = a
+            used.add(name)
+        return out
+
+    variables = {"params": build(shapes, "")}
+    assert used == set(sd), sorted(set(sd) ^ used)
+    return variables
 
 
 def jitted_vjp(fn, args, cotangent):

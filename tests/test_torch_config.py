@@ -2,16 +2,25 @@
 every file of ``cfgs/`` loads to the same mapping, the flagship config
 built in code is ``cfgs/dare_qnn_next_tpu.yaml``, ``compute_dtype``
 maps amp to torch dtypes, and the flagship model spec (column groups,
-QNN blocks, 200 features) matches.  One test item (see
-``_torch_helpers``)."""
+QNN blocks, 200 features) matches; ``synth_small_config_dict`` is
+``cfgs/synth_small.yaml``.  Which configs the port takes: 8 of
+the 9 files pass ``train.trainer._check_ported`` and
+``models.build_model``'s check (``synth_small.yaml`` with its dense-mode
+AdamW tables among them); ``pod_scale_stretch.yaml`` asks for more than
+one device and is refused, naming ROADMAP queue 1 item 8.  One test item
+(see ``_torch_helpers``)."""
 
 import glob
 import os
+
+import pytest
 
 from _torch_helpers import Checks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "cfgs", "dare_qnn_next_tpu.yaml")
+# the configs the port refuses, and what the refusal names
+REFUSED = {"pod_scale_stretch.yaml": "more than one device, ROADMAP queue 1 item 8"}
 
 
 def test_config_and_spec_match_jax():
@@ -23,6 +32,7 @@ def test_config_and_spec_match_jax():
     from tossctr_tpu_torch.config import Config, load_config
     from tossctr_tpu_torch.config.flagship import (
         flagship_config_dict,
+        synth_small_config_dict,
         v3_k120_config_dict,
         v3_k148_config_dict,
     )
@@ -35,6 +45,10 @@ def test_config_and_spec_match_jax():
     def flagship_dict_is_the_yaml_file():
         with open(FLAGSHIP) as f:
             assert flagship_config_dict() == yaml.safe_load(f)
+
+    def synth_small_dict_is_the_yaml_file():
+        with open(os.path.join(ROOT, "cfgs", "synth_small.yaml")) as f:
+            assert synth_small_config_dict() == yaml.safe_load(f)
 
     def v3_k120_dict_is_the_yaml_file_over_its_base():
         """Also v3_k148, whose base is v3_k120."""
@@ -74,10 +88,30 @@ def test_config_and_spec_match_jax():
             assert getattr(got, name) == getattr(want, name), name
         assert {k: want.qnn[k] for k in got.qnn} == got.qnn
 
+    def ported_or_refused(path):
+        """A config the port takes passes the checks; the one it does not
+        raises NotImplementedError naming its ROADMAP item."""
+        from tossctr_tpu_torch.models import build_model
+        from tossctr_tpu_torch.train.trainer import _check_ported
+
+        cfg = load_config(path)
+        if os.path.basename(path) in REFUSED:
+            with pytest.raises(NotImplementedError, match=REFUSED[os.path.basename(path)]):
+                _check_ported(cfg)
+            return
+        _check_ported(cfg)
+        # the check, without allocating the tables
+        build_model(cfg, {"X_num": 3, "X_mask": 3, "X_cat": len(cfg.data.cat_cols),
+                          "seq_len": cfg.sequence.max_len}, device="meta")
+
     checks = Checks()
-    for path in sorted(glob.glob(os.path.join(ROOT, "cfgs", "*.yaml"))):
+    paths = sorted(glob.glob(os.path.join(ROOT, "cfgs", "*.yaml")))
+    assert len(paths) == 9
+    for path in paths:
         checks.run(f"loads {os.path.basename(path)}", loads_as_in_the_jax_package, path)
-    for fn in (flagship_dict_is_the_yaml_file, v3_k120_dict_is_the_yaml_file_over_its_base,
+        checks.run(f"ported or refused: {os.path.basename(path)}", ported_or_refused, path)
+    for fn in (flagship_dict_is_the_yaml_file, synth_small_dict_is_the_yaml_file,
+               v3_k120_dict_is_the_yaml_file_over_its_base,
                compute_dtype, deep_merge_and_buckets, flagship_model_spec_matches):
         checks.run(fn.__name__, fn)
     checks.done()

@@ -53,7 +53,9 @@ not a multiple of a (16, W) block, of the kernel's 8192-element item and
 of 8 elements, one of thousands of items, the sparse one over lists
 with padding repeats, ids outside the table and none at all; the
 dropout-mask dump
-kernel at the attention and FFN geometries and ragged shapes; and the
+kernel at the attention and FFN geometries and ragged shapes (K % 4 != 0
+with one and three heads, a single row, element counts that are not
+multiples of 4); and the
 persistent kernels at a grid of a few blocks against their default
 grid.  Tolerances:
 
@@ -704,7 +706,13 @@ def test_cuda_kernels_match_plain_versions():
         checks.run(f"table sweeps V={V} D={D} W={W} {listed}", table_sweeps, V, D, W, blocks)
     for B, K, H, N, F, p, seed in ((64, 12, 8, 128, 256, 0.3, 1234),
                                    (9, 64, 8, 577, 384, 0.1, 2**31 - 2),
-                                   (5, 13, 4, 37, 40, 0.15, 7)):
+                                   (5, 13, 4, 37, 40, 0.15, 7),
+                                   # K % 4 != 0 with one and three heads, one row, and
+                                   # element counts that are not multiples of 4
+                                   (1, 13, 1, 1, 7, 0.1, 99),
+                                   (3, 7, 3, 5, 3, 0.5, 2**32 - 1),
+                                   (2, 64, 3, 1, 384, 0.1, 5),
+                                   (1, 1, 1, 3, 4097, 0.2, 11)):
         checks.run(f"mask dumps B={B} K={K} H={H} N={N} F={F}", mask_dumps, B, K, H, N, F, p,
                    seed)
     for dtype in ("f32", "bf16"):

@@ -25,8 +25,8 @@
   loads as ``norm1`` / ``norm2`` (``qnn/LayerNorm_0`` keeps its name), the
   JAX package's own migration agreeing; the port's format saves and loads
   the LayerNorm keys.
-* ``build_model`` accepts the four settings it refused before and still
-  refuses split tables and streaming selection.
+* ``build_model`` accepts the four settings it refused before (and the
+  split tables) and still refuses streaming and proxy selection.
 
 One test item (see ``_torch_helpers``).
 """
@@ -285,10 +285,12 @@ def test_layernorm_paths_match_jax(tmp_path):
 
     def build_model_gate():
         for over in (BOTH_LAYER, UNFUSED, {"model": {"use_pallas_attention": False}},
-                     {"model": {"use_pallas_ffn": False}}):
+                     {"model": {"use_pallas_ffn": False}}, {"model": {"fused_seq_tables": False}}):
             d = H.tiny_cfg_dict("none", **copy.deepcopy(over))
             build_model(Config.from_dict(d), H.dims_for(d), device="cpu")
-        for over in ({"model": {"fused_seq_tables": False}}, {"sequence": {"select_chunk": 8}}):
+        for over in ({"sequence": {"select_proxy": True, "select_proxy_block": 50,
+                                   "select_proxy_candidates": 8}},
+                     {"sequence": {"select_chunk": 8}}):
             d = H.tiny_cfg_dict("none", **over)
             with pytest.raises(NotImplementedError):
                 build_model(Config.from_dict(d), H.dims_for(d), device="cpu")

@@ -15,7 +15,8 @@ numpy batch with dropout off.
 
 The unfused encoder (``use_pallas_attention`` / ``use_pallas_ffn``
 false) is held in fp32 too.  Configs that ask for a path the port has
-not ported (split tables, streaming selection) raise.  One test item
+not ported (streaming and proxy selection) raise; the split tables have
+a file of their own (``test_torch_split_tables.py``).  One test item
 (see ``_torch_helpers``).
 """
 
@@ -80,8 +81,9 @@ def test_model_matches_flax():
         checks.run("unfused encoder fp32", fp32, H.tiny_cfg_dict(
             "none", model={"use_pallas_attention": False, "use_pallas_ffn": False}))
         for over in (
-            {"model": {"fused_seq_tables": False}},
             {"sequence": {"select_chunk": 8}},
+            {"sequence": {"select_proxy": True, "select_proxy_block": 50,
+                          "select_proxy_candidates": 8}},
         ):
             checks.run(f"unported {over} raises", unported_path_raises, over)
     checks.done()

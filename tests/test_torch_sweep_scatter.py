@@ -1,5 +1,5 @@
 """The port's ``sweep_rows_add`` plain version and its sweep AdaGrad step
-(``rowwise_adagrad_update(sweep=True)``) against
+(``rowwise_adagrad_sweep_update``) against
 ``tossctr_tpu/ops/pallas_scatter.py``
 (the Pallas sweep in interpret mode, superblock 512), on a table of V =
 5,000 rows (not a multiple of the superblock) and N = 1,200 update rows
@@ -48,7 +48,10 @@ def test_sweep_plain_version_matches_pallas():
     from tossctr_tpu.ops.pallas_scatter import rowwise_adagrad_sweep_update as jax_update
     from tossctr_tpu.ops.pallas_scatter import sweep_rows_add as jax_sweep
     from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts, sweep_rows_add
-    from tossctr_tpu_torch.train.sparse_embed import RowwiseAdagradState, rowwise_adagrad_update
+    from tossctr_tpu_torch.train.sparse_embed import (
+        RowwiseAdagradState,
+        rowwise_adagrad_sweep_update,
+    )
 
     def tables_of(seed, n, D, dtype):
         rng = np.random.default_rng(seed)
@@ -97,8 +100,9 @@ def test_sweep_plain_version_matches_pallas():
                                   lr=0.05, weight_decay=0.01, pad_row=PAD,
                                   superblock=SUPERBLOCK, interpret=True, halves=2)
         (tt,), state = tts, RowwiseAdagradState(torch.from_numpy(acc.copy()))
-        rowwise_adagrad_update(tt, state, torch.from_numpy(ids_ok), torch.from_numpy(g), lr=0.05,
-                               weight_decay=0.01, pad_row=PAD, exact_dedup=False, sweep=True)
+        rowwise_adagrad_sweep_update([tt], [state], torch.from_numpy(ids_ok),
+                                     [torch.from_numpy(g)], lr=0.05, weight_decay=0.01,
+                                     pad_row=PAD)
         ta = state.accum
         hold("table", dtype, tt, jt, before[0])
         err = float(np.abs(ta.numpy() - np.asarray(ja)).max())

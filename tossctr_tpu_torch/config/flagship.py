@@ -1,9 +1,11 @@
-"""The flagship configuration and its K = 120 variant, built in code.
+"""The flagship configuration, its K = 120 and K = 148 variants and the
+small synthetic config, built in code.
 
-The same mappings as ``cfgs/dare_qnn_next_tpu.yaml`` and
-``cfgs/v3_k120_s1_tpu.yaml`` resolved over its base (tests hold them
-equal), so ``chip_smoke.py`` builds both ``Config``s with
-``Config.from_dict`` on a machine without PyYAML.
+The same mappings as ``cfgs/dare_qnn_next_tpu.yaml``,
+``cfgs/v3_k120_s1_tpu.yaml`` and ``cfgs/v3_k148_s1_tpu.yaml`` resolved
+over their bases, and ``cfgs/synth_small.yaml`` (tests hold them equal),
+so ``chip_smoke.py`` builds their ``Config``s with ``Config.from_dict`` on
+a machine without PyYAML.
 """
 
 import copy
@@ -224,3 +226,53 @@ def v3_k148_config_dict() -> dict:
     from .schema import deep_merge
 
     return deep_merge(v3_k120_config_dict(), copy.deepcopy(_V3_K148))
+
+
+# cfgs/synth_small.yaml: the full stack at toy sizes (D = 32, 2 layers of
+# 4 heads, K = 12, a 6000-row table), fp32, and the schema's default
+# dense-mode table optimizer, AdamW
+_SYNTH_SMALL = {
+    'exp_name': 'synth_small', 'seed': 777, 'device': 'tpu', 'deterministic': True,
+    'amp': 'none',
+    'data': {'train_path': '/tmp/tossctr_synth/train.parquet',
+             'test_path': '/tmp/tossctr_synth/test.parquet',
+             'cache_dir': '/tmp/tossctr_synth/cache', 'shard_rows': 8000,
+             'add_isna_mask': True, 'impute_strategy': 'median',
+             'cat_cols': ['gender', 'age_group', 'inventory_id', 'day_of_week', 'hour',
+                          'l_feat_1', 'l_feat_2'],
+             'hash_buckets': {'gender': 101, 'age_group': 101, 'inventory_id': 503,
+                              'day_of_week': 101, 'hour': 101, 'l_feat_1': 101,
+                              'l_feat_2': 101},
+             'num_patterns': ['feat_*', 'history_*']},
+    'sequence': {'col': 'seq', 'max_len': 48, 'pad_id': 0, 'top_k': 12, 'recency_tau': 64,
+                 'query_mode': 'concat', 'query_key': 'inventory_id',
+                 'transformer_block': True,
+                 'tfm': {'n_layers': 2, 'n_heads': 4, 'mha_dropout': 0.1, 'ffn_hidden': 64,
+                         'ffn_dropout': 0.1, 'norm': 'rms', 'gating': 'softmax',
+                         'add_positional_bias': True}},
+    'model': {'emb_dim': 32, 'seq_vocab': 6000, 'dare_dropout': 0.1, 'embedding_dropout': 0.02,
+              'cat_embedding_dims': {'gender': 8, 'age_group': 8, 'inventory_id': 16,
+                                     'day_of_week': 8, 'hour': 8, 'l_feat_1': 8, 'l_feat_2': 8},
+              'qnn_alpha': {'enabled': True, 'feature_embed_dim': 8, 'heads': 4, 'rank': 8,
+                            'proj_dim': 32, 'mlp_hidden': [128, 64], 'dropout': 0.1,
+                            'use_se': True, 'se_reduction': 4, 'use_residual': True,
+                            'norm': 'rms', 'pair_grouping': 'all', 'aux_head_weight': 0.1}},
+    'train': {'batch_size': 1024, 'epochs': 3, 'optimizer': 'adamw', 'lr': 0.002,
+              'weight_decay': 0.0001, 'warmup_epochs': 1, 'cosine': True,
+              'early_stop_patience': 3, 'grad_clip_norm': 0.5, 'monitor': 'score'},
+    'cv': {'n_splits': 1, 'group_key': 'inventory_id', 'stratify_target': 'clicked',
+           'time_key': 'day_of_week', 'composite_group': True},
+    'eval': {'monitor': 'score', 'maximize': True},
+    'calibration': {'enabled': True, 'method': 'temperature', 'lr': 0.05, 'iters': 200},
+    'logging': {'log_dir': '/tmp/tossctr_synth/runs', 'tb': False, 'csv_log': True,
+                'verbose_steps': 50},
+    'ensemble': {'method': 'logit_mean', 'trim_ratio': 0.2, 'weights': [],
+                 'val_weight_temperature': 10.0},
+    'sampler': {'type': 'None', 'pos_fraction': 0.5},
+    'ema': {'enabled': True, 'decay': 0.99, 'eval_with_ema': True},
+}
+
+
+def synth_small_config_dict() -> dict:
+    """A fresh copy of ``cfgs/synth_small.yaml``'s mapping."""
+    return copy.deepcopy(_SYNTH_SMALL)

@@ -5,6 +5,7 @@ variables tree maps onto ``state_dict`` keys path for path, with ``.``
 for ``/``:
 
     dare/emb_tables                     -> dare.emb_tables
+    dare/emb_att, dare/emb_rep          -> dare.emb_att, dare.emb_rep (split tables)
     dare/layer_0/mha/qkv/kernel         -> dare.layer_0.mha.qkv.kernel
     cat_embed/table_8, cat_embed/proj_8 -> cat_embed.table_8, cat_embed.proj_8
     qnn/RMSNorm_0/w, qnn/se/Dense_0/... -> qnn.RMSNorm_0.w, qnn.se.Dense_0...
@@ -13,12 +14,14 @@ Layouts are kept too: a flax ``Dense.kernel`` is (in, out) and the port's
 ``Dense`` multiplies by it as stored.  A bfloat16 leaf (an ``ml_dtypes``
 array, or the msgpack reader's tensor) becomes ``torch.bfloat16``.
 
-``load_flax_train_state`` carries a whole JAX sparse-table ``TrainState``
-across (parameters, AdamW moments, EMA shadow, step and the table's
-AdaGrad accumulator), so a test can start both packages' train steps
-from one state.  Imports neither flax, optax nor the JAX package: leaves
-are numpy arrays or torch tensors, and the optimizer and EMA states are
-read by their field names.
+``load_flax_train_state`` carries a whole JAX ``TrainState`` across
+(parameters, AdamW moments, EMA shadow, step, and the tables' AdaGrad
+accumulators or the dense-mode Adafactor's second moments), so a test
+can start both packages' train steps from one state.  Imports neither
+flax, optax nor the JAX package: leaves are numpy arrays or torch
+tensors, the optimizer and EMA states are read by their field names,
+and optax's ``MaskedNode`` placeholders (the leaves another label's
+transform owns) are skipped by their type's name.
 """
 
 from __future__ import annotations
@@ -68,21 +71,36 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             key = f"{prefix}.{k}" if prefix else str(k)
             if isinstance(v, dict):
                 walk(key, v)
-            else:
+            elif type(v).__name__ != "MaskedNode":
                 out[key] = to_tensor(v)
 
     walk("", tree)
     return out
 
 
+def _find_state(tree, field: str):
+    """The first node of an optax state tree (tuples, named tuples and
+    dicts, depth first) that has the attribute ``field``, or None."""
+    if hasattr(tree, field):
+        return tree
+    children = tree.values() if isinstance(tree, dict) else tree if isinstance(
+        tree, (tuple, list)) else ()
+    for child in children:
+        found = _find_state(child, field)
+        if found is not None:
+            return found
+    return None
+
+
 @torch.no_grad()
 def load_flax_train_state(state, jax_state) -> None:
-    """Copy a JAX ``TrainState`` (sparse-table mode, leaves fetched to the
-    host) into the port's ``train.trainer.TrainState`` in place."""
+    """Copy a JAX ``TrainState`` (leaves fetched to the host) into the
+    port's ``train.trainer.TrainState`` in place: sparse-table or dense
+    mode, fused or split tables."""
     model = state.model
     model.load_state_dict(flax_to_state_dict(jax_state.params), strict=True)
     params = dict(model.named_parameters())
-    adam = next(s for s in jax_state.opt_state if hasattr(s, "mu"))
+    adam = _find_state(jax_state.opt_state, "mu")
     mu, nu = flax_to_state_dict(adam.mu), flax_to_state_dict(adam.nu)
     for p in (q for group in state.opt.param_groups for q in group["params"]):
         name = next(n for n, q in params.items() if q is p)
@@ -91,6 +109,11 @@ def load_flax_train_state(state, jax_state) -> None:
             "exp_avg": mu[name].to(p.device, p.dtype).clone(),
             "exp_avg_sq": nu[name].to(p.device, p.dtype).clone(),
         }
+    factored = _find_state(jax_state.opt_state, "v_row")
+    if factored is not None and state.emb_opt is not None:
+        state.emb_opt.load_state_dict({
+            "count": int(np.asarray(factored.count)),
+            **{k: flax_to_state_dict(getattr(factored, k)) for k in ("v_row", "v_col", "v")}})
     if state.ema is not None:
         shadow = flax_to_state_dict(jax_state.ema.shadow)
         for n, s in state.ema.shadow.items():

@@ -8,8 +8,7 @@
 // hardware PRNG at the coordinates the fused kernels draw it, so that a
 // masked oracle can rebuild the kernels' outputs.  The card has no
 // hardware mask: dropout_impl "hw" runs the counter hash
-// (ops/dropout.py), and these kernels dump that hash through the very
-// functions the four forwards and four backwards call.
+// (ops/dropout.py), and these kernels dump that hash.
 //
 // What it computes: attention (kind 0): out (B, H, K, K) fp32, out[b, h,
 // q, k] = Dropout::attn(b, q, k, h), the keep scale 1/(1-p) where the
@@ -20,47 +19,96 @@
 //
 // What bounds it on the card: the bytes written, 4 an element (1.07 GB at
 // the flagship's attention geometry B = 8192, K = 64, H = 8: 0.32 ms at
-// 3.35 TB/s).  About 17 integer operations an element for the hash.
+// 3.35 TB/s).  The hash itself is a handful of 32-bit integer operations
+// an element.
 //
-// Design: a grid-stride loop over the flat output, four consecutive
-// elements a thread and one 16-byte store; the coordinates come from the
-// flat index by division.  An output whose size is not a multiple of 4
-// ends element by element.
+// Design: both masks are a stack of rows whose hash is linear in the
+// coordinates, x = row_lin + col * col_mix (mod 2^32), then fmix32 and a
+// compare (common.cuh Dropout::attn / ffn).  A block takes a tile of rows
+// the grid indexes directly, so no 64-bit division is left: kind 0 one (b,
+// h) slab of K query rows (row_lin = b*kMixR + q*kMixQ + h*kMixH + seed
+// mix, col_mix = kMixK); kind 1 kFfnTile consecutive rows (row_lin =
+// r*kMixR + seed mix, col_mix = kMixQ).  Its threads walk the tile's
+// (row, group of 4 columns) items with a fixed stride, the row and column
+// advanced by addition, forming row_lin once an item and adding col_mix
+// from column to column, and store 16 bytes an item (st.global.cs: the
+// mask is written once and read later by another kernel).  A tile whose
+// width is not a multiple of 4 (its rows are then not 16-byte aligned)
+// takes the tail path: one column an item, 4-byte stores.  The result is
+// the same 32-bit arithmetic as Dropout::attn / ffn, so the bits are the
+// plain version's.
 #include "common.cuh"
 
 namespace {
 
-using tossctr::Dropout;
+using tossctr::fmix32;
+using tossctr::kMixH;
+using tossctr::kMixK;
+using tossctr::kMixQ;
+using tossctr::kMixR;
 
 constexpr int kThreads = 256;
+constexpr int kFfnTileElems = 4096;  // an FFN block's tile: about this many elements
 
-struct Geometry {
-  int kind;  // 0: attention (rows, H, K, K); 1: FFN (rows, F)
-  int K;     // K (attention) or F (FFN)
-  int H;
-  __device__ __forceinline__ float keep(const Dropout& drop, size_t e) const {
-    if (kind == 1) return drop.ffn((uint32_t)(e / K), (uint32_t)(e % K));
-    const uint32_t k = (uint32_t)(e % K);
-    size_t t = e / K;
-    const uint32_t q = (uint32_t)(t % K);
-    t /= K;
-    const uint32_t h = (uint32_t)(t % H);
-    return drop.attn((uint32_t)(t / H), q, k, h);
+struct Keep {
+  uint32_t thresh;
+  float scale;
+  __device__ __forceinline__ float operator()(uint32_t x) const {
+    return fmix32(x) >= thresh ? scale : 0.f;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-dump_kernel(float* __restrict__ out, size_t n, Geometry g, Dropout drop) {
-  const size_t stride = (size_t)gridDim.x * kThreads;
-  const size_t n4 = n / 4;
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {
-    const size_t e = 4 * i;
-    reinterpret_cast<float4*>(out)[i] =
-        make_float4(g.keep(drop, e), g.keep(drop, e + 1), g.keep(drop, e + 2),
-                    g.keep(drop, e + 3));
+// One tile: ``rows`` rows of ``cols`` fp32 at ``out``, element (i, j)
+// keeping on row_lin0 + i * row_mix + j * col_mix.
+__device__ __forceinline__ void dump_tile(float* __restrict__ out, uint32_t rows, uint32_t cols,
+                                          uint32_t row_lin0, uint32_t row_mix, uint32_t col_mix,
+                                          Keep keep) {
+  const uint32_t groups = (cols % 4 == 0) ? cols / 4 : cols;  // items a row
+  const uint32_t width = (cols % 4 == 0) ? 4u : 1u;           // columns an item
+  // the walk's stride in (row, item) form, once a thread
+  const uint32_t d_row = kThreads / groups, d_item = kThreads % groups;
+  uint32_t i = threadIdx.x / groups, g = threadIdx.x % groups;
+  if (width == 4) {
+    float4* out4 = reinterpret_cast<float4*>(out);
+    while (i < rows) {
+      const uint32_t x = row_lin0 + i * row_mix + 4u * g * col_mix;
+      const float4 v = make_float4(keep(x), keep(x + col_mix), keep(x + 2u * col_mix),
+                                   keep(x + 3u * col_mix));
+      __stcs(out4 + (size_t)i * groups + g, v);
+      i += d_row;
+      g += d_item;
+      if (g >= groups) {
+        g -= groups;
+        ++i;
+      }
+    }
+  } else {
+    while (i < rows) {
+      __stcs(out + (size_t)i * cols + g, keep(row_lin0 + i * row_mix + g * col_mix));
+      i += d_row;
+      g += d_item;
+      if (g >= groups) {
+        g -= groups;
+        ++i;
+      }
+    }
   }
-  for (size_t e = 4 * n4 + (size_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride)
-    out[e] = g.keep(drop, e);
+}
+
+// kind 0: block s = b * H + h writes the (K, K) slab out[b, h].
+__global__ void __launch_bounds__(kThreads)
+attn_dump_kernel(float* __restrict__ out, uint32_t K, uint32_t H, uint32_t seed_mix, Keep keep) {
+  const uint32_t s = blockIdx.x, b = s / H, h = s - b * H;
+  dump_tile(out + (size_t)s * K * K, K, K, b * kMixR + h * kMixH + seed_mix, kMixQ, kMixK, keep);
+}
+
+// kind 1: block t writes rows [t * tile, min((t + 1) * tile, N)) of (N, F).
+__global__ void __launch_bounds__(kThreads)
+ffn_dump_kernel(float* __restrict__ out, uint32_t N, uint32_t F, uint32_t tile,
+                uint32_t seed_mix, Keep keep) {
+  const uint32_t r0 = blockIdx.x * tile;
+  const uint32_t rows = min(tile, N - r0);
+  dump_tile(out + (size_t)r0 * F, rows, F, r0 * kMixR + seed_mix, kMixR, kMixQ, keep);
 }
 
 }  // namespace
@@ -76,17 +124,23 @@ extern "C" int tossctr_dropout_dump(void* out, int kind, int rows, int K, int H,
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const size_t n = kind == 0 ? (size_t)rows * H * K * K : (size_t)rows * K;
-  if (n == 0) return 0;
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  const size_t want = (n / 4 + kThreads - 1) / kThreads;
-  const size_t cap = (size_t)sms * 8;  // eight blocks an SM: 2048 threads, the SM's most
-  const int grid = (int)(want < cap ? (want > 0 ? want : 1) : cap);
-  dump_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), n, Geometry{kind, K, H},
-      Dropout(keep_thresh, keep_scale, seed));
+  if (rows == 0) return 0;
+  const tossctr::Dropout drop(keep_thresh, keep_scale, seed);
+  const Keep keep{drop.thresh, drop.scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (kind == 0) {
+    const long long slabs = (long long)rows * H;
+    if (slabs > 0x7fffffffLL || (long long)K * K > 0xffffffffLL)
+      return (int)cudaErrorInvalidValue;
+    attn_dump_kernel<<<(unsigned)slabs, kThreads, 0, st>>>(o, (uint32_t)K, (uint32_t)H,
+                                                            drop.seed_mix, keep);
+  } else {
+    const uint32_t tile = K >= kFfnTileElems ? 1u : (uint32_t)(kFfnTileElems / K);
+    const uint32_t blocks = (uint32_t)(((long long)rows + tile - 1) / tile);
+    ffn_dump_kernel<<<blocks, kThreads, 0, st>>>(o, (uint32_t)rows, (uint32_t)K, tile,
+                                                 drop.seed_mix, keep);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -88,7 +88,8 @@ class Calibrator:
     def _require_temperature(self):
         if self.method != "temperature" or self.iso is not None:
             raise NotImplementedError(
-                f"calibration method {self.method!r}: only temperature scaling is ported"
+                f"calibration method {self.method!r}: only temperature scaling is ported "
+                "(isotonic calibration, ROADMAP queue 1 item 2)"
             )
 
     def fit(self, logits, y) -> "Calibrator":

@@ -5,8 +5,9 @@ There, the hardware-PRNG mask cannot be rebuilt in numpy, so a sibling
 kernel dumps it at the fused kernels' coordinates and a masked oracle
 rebuilds their outputs from the dump.  The card has no hardware mask:
 ``dropout_impl: hw`` runs the counter hash (``ops/dropout.py``), and the
-dump kernel (``csrc/dropout_dump.cu``) writes it through the very hash
-functions the kernels call.  At each geometry the check then holds:
+dump kernel (``csrc/dropout_dump.cu``) writes it with the same 32-bit
+hash the kernels compute (``common.cuh``'s constants and ``fmix32``).
+At each geometry the check then holds:
 
 1. the dumps bit-equal to the plain masks (``attention_keep``,
    ``ffn_keep``);

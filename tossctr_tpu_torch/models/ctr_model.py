@@ -199,7 +199,8 @@ class GroupedCatEmbedding(nn.Module):
 class CTRModel(nn.Module):
     def __init__(self, spec: ModelSpec, dtype=torch.float32, *, se_batch_stats: bool = True,
                  use_pallas_attn: bool = True, use_pallas_ffn: bool = True,
-                 use_pallas_fm: bool = False):
+                 use_pallas_fm: bool = False, fused_tables: bool = True,
+                 sparse_tables: bool = True):
         super().__init__()
         self.spec = spec
         self.dtype = dtype
@@ -221,6 +222,7 @@ class CTRModel(nn.Module):
             dropout=sp.dare_dropout, mha_dropout=sp.tfm_mha_dropout,
             ffn_dropout=sp.tfm_ffn_dropout, norm=sp.tfm_norm,
             use_pallas_attn=use_pallas_attn, use_pallas_ffn=use_pallas_ffn,
+            fused_tables=fused_tables, sparse_tables=sparse_tables,
         )
         if sp.qnn_enabled:
             self.qnn = QNNAlpha(sp.n_feat, D, se_batch_stats=se_batch_stats,
@@ -273,6 +275,10 @@ class CTRModel(nn.Module):
         return logits, torch.sigmoid(logits), aux_logit.float()
 
 
+# the table optimizers of the sparse-table train modes (train/trainer.py)
+SPARSE_EMB_OPTS = ("rowwise_adagrad", "sparse_sgd")
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  CUDA unless the caller asks for
     the CPU; asking for CUDA on a machine without it raises."""
@@ -286,8 +292,12 @@ def resolve_device(device) -> torch.device:
 
 def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     """CTRModel for ``cfg`` and the cache ``dims``, with uninitialised
-    parameters allocated on ``device``: the dense parameters trainable,
-    the sequence table without grad (the trainer updates its rows).
+    parameters allocated on ``device``.  The sequence tables are the
+    lane-fused (V, 2D) table or, with ``model.fused_seq_tables: false``,
+    the split (V, D) pair; in the sparse-table train modes
+    (``train.embedding_optimizer`` rowwise_adagrad or sparse_sgd) they take
+    no gradient (the trainer updates their rows), in the dense ones they
+    are trainable like every other parameter.
     ``model.use_pallas_attention`` / ``use_pallas_ffn`` None or true
     select the encoder's kernels, false its plain PyTorch attention core
     or FFN (the JAX package resolves None to the kernels on a TPU only);
@@ -296,19 +306,18 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     of the QNN-alpha head.  A config that asks for an unported path
     raises."""
     m, s = cfg.model, cfg.sequence
-    unported = {
-        "model.fused_seq_tables: false (split tables)": not m.fused_seq_tables,
-        "sequence.select_chunk / select_proxy": bool(s.select_chunk or s.select_proxy),
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"not ported to tossctr_tpu_torch yet: {', '.join(asked)}")
+    if s.select_chunk or s.select_proxy:
+        raise NotImplementedError(
+            "not ported to tossctr_tpu_torch yet: sequence.select_chunk / select_proxy "
+            "(streaming / proxy selection, ROADMAP queue 1 item 2)")
     with torch.device(resolve_device(device)):
         return CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
                         se_batch_stats=bool(m.qnn_alpha.se_batch_stats),
                         use_pallas_attn=m.use_pallas_attention is not False,
                         use_pallas_ffn=m.use_pallas_ffn is not False,
-                        use_pallas_fm=bool(m.extra.get("use_pallas_fm", False)))
+                        use_pallas_fm=bool(m.extra.get("use_pallas_fm", False)),
+                        fused_tables=bool(m.fused_seq_tables),
+                        sparse_tables=cfg.train.embedding_optimizer in SPARSE_EMB_OPTS)
 
 
 @torch.no_grad()
@@ -331,6 +340,6 @@ def init_params(model: CTRModel, seed: int) -> CTRModel:
         elif leaf == "kernel" or leaf.startswith("proj_"):
             fan_in = math.prod(p.shape[:-1])
             p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
-        else:  # emb_tables, table_{d}, rel
+        else:  # emb_tables (or emb_att, emb_rep), table_{d}, rel
             p.normal_(0.0, 1.0, generator=gen)
     return model

@@ -1,17 +1,23 @@
 """DARE sequence encoder.
 
-Port of ``tossctr_tpu/models/dare.py`` with the lane-fused (V, 2D)
-sequence table (``emb_tables``: the att half scores, the rep half
-represents): dense top-k selection, ``pad_topk`` to the 8-row tile, the
-encoder layers (RMSNorm or LayerNorm, kernel or plain paths), softmax or
-relu gating, the dropout on ``u_seq`` and the aux head.  The
-reference-shaped split tables wait for a later slice.
+Port of ``tossctr_tpu/models/dare.py``: dense top-k selection, ``pad_topk``
+to the 8-row tile, the encoder layers (RMSNorm or LayerNorm, kernel or
+plain paths), softmax or relu gating, the dropout on ``u_seq`` and the
+aux head.  The sequence tables come in the JAX package's two layouts: the
+lane-fused (V, 2D) ``emb_tables`` (``model.fused_seq_tables``, the
+default: the att half scores, the rep half represents), or the
+reference-shaped pair of (V, D) tables ``emb_att`` (scores) and
+``emb_rep`` (represents).
 
-The table never takes a gradient.  A training pass given a ``taps`` dict
-records the selected ids and makes the gathered, pad-masked (B, K, 2D)
-rows a leaf of the autograd graph (the JAX package's
-``perturb("table_rows")``): the trainer reads the rows' gradient there
-and updates the touched table rows itself (``train/sparse_embed.py``).
+With ``sparse_tables`` (the sparse-table train modes) the tables take no
+gradient.  A training pass given a ``taps`` dict records the selected ids
+and makes the gathered, pad-masked rows leaves of the autograd graph (the
+JAX package's ``perturb``): ``table_rows`` (B, K, 2D) of the fused table,
+or ``att_rows`` and ``rep_rows`` (B, K, D) of the split pair; the trainer
+reads their gradients there and updates the touched table rows itself
+(``train/sparse_embed.py``).  Without it (the dense-mode table
+optimizers) the tables are trainable parameters whose gradient flows
+through the gathers.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ class DARE(nn.Module):
                  ffn_hidden: int = 256, gating: str = "softmax",
                  add_positional_bias: bool = True, table_dtype=torch.float32,
                  dropout: float = 0.0, mha_dropout: float = 0.0, ffn_dropout: float = 0.0,
-                 norm: str = "rms", use_pallas_attn: bool = True, use_pallas_ffn: bool = True):
+                 norm: str = "rms", use_pallas_attn: bool = True, use_pallas_ffn: bool = True,
+                 fused_tables: bool = True, sparse_tables: bool = True):
         super().__init__()
         if gating not in ("softmax", "relu"):
             raise ValueError(f"gating must be softmax|relu, got {gating!r}")
@@ -44,9 +51,12 @@ class DARE(nn.Module):
         self.gating = gating
         self.dropout = float(dropout)
         self.n_layers = n_layers if transformer_block else 0
-        self.emb_tables = nn.Parameter(
-            torch.empty(seq_vocab, 2 * emb_dim, dtype=table_dtype), requires_grad=False
-        )
+        self.fused_tables = fused_tables
+        shapes = ({"emb_tables": 2 * emb_dim} if fused_tables else
+                  {"emb_att": emb_dim, "emb_rep": emb_dim})
+        for name, width in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(seq_vocab, width, dtype=table_dtype), requires_grad=not sparse_tables))
         for i in range(self.n_layers):
             self.add_module(f"layer_{i}", DAREEncoderLayer(
                 emb_dim, n_heads, ffn_hidden, mha_dropout=mha_dropout, ffn_dropout=ffn_dropout,
@@ -59,12 +69,13 @@ class DARE(nn.Module):
                 taps: Optional[dict] = None):
         """seq_ids (B, L) int, query_vec (B, D) -> (u_seq (B, D), aux_logit (B,)).
         ``rng``: train (dropout on); ``taps``: receives ``sel_ids`` (B, K)
-        and the rows leaf ``table_rows`` (B, K, 2D)."""
+        and the rows leaves, ``table_rows`` (B, K, 2D) or ``att_rows`` and
+        ``rep_rows`` (B, K, D)."""
         D = self.emb_dim
         L = seq_ids.shape[1]
         query = query_vec.to(dtype)
         idx, sel_ids, _ = dare_select_ids(
-            self.emb_tables[:, :D], seq_ids, query,
+            self.emb_tables[:, :D] if self.fused_tables else self.emb_att, seq_ids, query,
             top_k=self.top_k, tau=self.recency_tau, pad_id=self.pad_id,
         )
         K_logical = sel_ids.shape[1]
@@ -76,12 +87,23 @@ class DARE(nn.Module):
                 sel_ids = nn.functional.pad(sel_ids, (0, K_pad - K_logical), value=self.pad_id)
                 idx = nn.functional.pad(idx, (0, K_pad - K_logical))
         sel_nonpad = (sel_ids != self.pad_id).to(dtype)[..., None]
-        rows = self.emb_tables[sel_ids].to(dtype) * sel_nonpad  # one (B, K, 2D) gather
+
+        def gathered(table, tap):
+            # a trainable table's gradient through embedding's backward
+            rows = nn.functional.embedding(sel_ids, table).to(dtype) * sel_nonpad
+            if taps is not None:
+                rows = rows.detach().requires_grad_()
+                taps[tap] = rows
+            return rows
+
         if taps is not None:
-            rows = rows.detach().requires_grad_()
             taps["sel_ids"] = sel_ids
-            taps["table_rows"] = rows
-        att_sel, sel_rep = rows[..., :D], rows[..., D:]
+        if self.fused_tables:
+            rows = gathered(self.emb_tables, "table_rows")  # one (B, K, 2D) gather
+            att_sel, sel_rep = rows[..., :D], rows[..., D:]
+        else:
+            att_sel = gathered(self.emb_att, "att_rows")
+            sel_rep = gathered(self.emb_rep, "rep_rows")
         vals = torch.bmm(att_sel, query[:, :, None])[..., 0]
         vals = vals + log_decay_at(idx, L, self.recency_tau, dtype)
         vals = torch.where(sel_ids == self.pad_id, torch.full_like(vals, -1e9), vals)

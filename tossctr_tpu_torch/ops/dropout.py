@@ -23,10 +23,12 @@ each multiply: the low 32 bits stay right even where the int64 product
 wraps, and torch's uint32 arithmetic is incomplete on the CPU.
 
 ``dump_attention_keep`` / ``dump_ffn_keep`` write the masks on the card
-through kernel ``csrc/dropout_dump.cu``, which calls the hash functions
-the eight dropping encoder kernels call (the port of
-``exp/hw_dropout_device_check.py``'s two mask dumps); their plain
-versions are ``attention_keep`` / ``ffn_keep``.
+through kernel ``csrc/dropout_dump.cu`` (the port of
+``exp/hw_dropout_device_check.py``'s two mask dumps), which forms the
+same 32-bit hash as the eight dropping encoder kernels (``common.cuh``'s
+mixing constants and ``fmix32``) over tiles the grid indexes directly;
+their plain versions are ``attention_keep`` / ``ffn_keep``, bit-equal at
+every shape.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ kernel ``csrc/sweep_rows_add.cu``, plain version
 sorted order, the deltas are cast to the table dtype first, each touched
 row is rounded once, and out-of-range ids are dropped.  The row-wise
 AdaGrad step built on it (``train.table_update: sweep``) is
-``train/sparse_embed.rowwise_adagrad_update(sweep=True)``.
+``train/sparse_embed.rowwise_adagrad_sweep_update``.
 
 The wrapper does outside the kernel what the JAX wrapper does outside its
 ``pallas_call``: it maps out-of-range ids to the sentinel V and sorts the

@@ -28,9 +28,10 @@ neither flax nor ``tossctr_tpu`` is imported.  The row-sharded
 
 ``save_train_state`` / ``load_train_state``: the step-resume state of
 one fold (``runs/<exp>/fold_<f>_state.pt``) in the port's own
-``torch.save`` form: the model (table included), AdamW, the table's
-AdaGrad accumulator, the EMA, the global step and the loop's epoch,
-wait, step in epoch and best so far.
+``torch.save`` form: the model (tables included), AdamW, the tables'
+AdaGrad accumulators or the dense-mode table optimizer's state
+(Adafactor's count and factored rows and columns), the EMA, the global
+step and the loop's epoch, wait, step in epoch and best so far.
 """
 
 from __future__ import annotations
@@ -117,6 +118,8 @@ def save_train_state(path: str, state, **loop) -> None:
         "model": _host(state.model.state_dict()),
         "opt": state.opt.state_dict(),
         "table_opt": {n: t.accum.detach().cpu() for n, t in state.table_opt.items()},
+        "emb_opt": None if state.emb_opt is None else {
+            k: (v if k == "count" else _host(v)) for k, v in state.emb_opt.state_dict().items()},
         "ema": (None if state.ema is None else
                 {"shadow": _host(state.ema.shadow), "num_updates": state.ema.num_updates}),
         "step": int(state.step),
@@ -133,6 +136,8 @@ def load_train_state(path: str, state) -> Dict[str, Any]:
     state.opt.load_state_dict(payload["opt"])
     for n, t in state.table_opt.items():
         t.accum.copy_(payload["table_opt"][n])
+    if state.emb_opt is not None:
+        state.emb_opt.load_state_dict(payload["emb_opt"])
     if state.ema is not None:
         for n, s in state.ema.shadow.items():
             s.copy_(payload["ema"]["shadow"][n])
@@ -156,7 +161,8 @@ class _CalibratorUnpickler(pickle.Unpickler):
             return cls
         if module.startswith("sklearn"):
             raise NotImplementedError(
-                f"calibrator.pkl holds {module}.{name}: isotonic calibration is not ported"
+                f"calibrator.pkl holds {module}.{name}: isotonic calibration is not ported "
+                "(ROADMAP queue 1 item 2)"
             )
         raise pickle.UnpicklingError(f"calibrator.pkl: class {module}.{name} is not allowed")
 
@@ -167,7 +173,8 @@ def load_legacy_calibrator(path: str) -> Calibrator:
     if not isinstance(cal, Calibrator):
         raise TypeError(f"{path} does not hold a Calibrator")
     if cal.iso is not None:
-        raise NotImplementedError(f"{path}: isotonic calibration is not ported")
+        raise NotImplementedError(f"{path}: isotonic calibration is not ported (ROADMAP queue 1 "
+                                  "item 2)")
     return cal
 
 

@@ -1,10 +1,11 @@
-"""Row-sparse updates of the sequence table: row-wise AdaGrad and sparse
+"""Row-sparse updates of the sequence tables: row-wise AdaGrad and sparse
 SGD.
 
 Port of ``tossctr_tpu/train/sparse_embed.py``.  The train step reads the
-gradient of the gathered (B, K, 2D) rows (``models/dare.py`` taps), masks
-the pad row's occurrences (the pad row never changes, as torch's
-padding_idx), and updates the rows it touched in place:
+gradient of the gathered rows of each sequence table (``models/dare.py``
+taps: (B, K, 2D) of the lane-fused table, (B, K, D) of each split one),
+masks the pad row's occurrences (the pad row never changes, as torch's
+padding_idx), and updates the rows it touched in place, table by table:
 
 * ``rowwise_adagrad_update(exact_dedup=True)``: sort the touched ids, sum
   duplicate rows' gradients in fp32, then one row-wise AdaGrad step a
@@ -21,7 +22,8 @@ padding_idx), and updates the rows it touched in place:
 * ``sparse_sgd_update``: the same scatter, without an accumulator.
 
 The lane-fused (V, 2D) table keeps one accumulator column per D-wide
-half, so the fused update equals updating the att and rep tables apart.
+half, (V, 2), so the fused update equals updating the att and rep tables
+apart; a split (V, D) table keeps a (V,) accumulator (``halves``).
 The scatter-adds (``scatter_add_rows``): on the CPU duplicates add one
 at a time in index order, in the destination's dtype, as XLA's scatter
 adds them; on the card with ``index_add_``'s atomics, whose order varies
@@ -29,34 +31,41 @@ from run to run (PyTorch's sorted merge, ``index_put_`` with
 ``accumulate``, costs tens of ms a step at the flagship's shapes on an
 H100: PERF.md).  An fp32 atomic add flushes a subnormal square to zero,
 which leaves the AdaGrad step unchanged: eps (1e-8) dwarfs the square
-root of any subnormal.  ``sweep=True`` (``train.table_update: sweep``)
-merges the deltas with ``ops/sweep_scatter.sweep_rows_add`` instead:
+root of any subnormal.  ``rowwise_adagrad_sweep_update``
+(``train.table_update: sweep``; the JAX function of that name) merges
+the deltas of every table touched at the same ids (the split pair's
+two) with one ``ops/sweep_scatter.sweep_rows_add`` launch instead:
 duplicates summed in fp32 in sorted order, each row rounded once, no
-atomics; its decay always reads fresh rows of the table, as the JAX
-``rowwise_adagrad_sweep_update`` does.
+atomics; its decay always reads fresh rows of the tables.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import sweep_scatter
 
 _INT64_MAX = torch.iinfo(torch.int64).max
-HALVES = 2  # the att and rep halves of the lane-fused table
 
 
 @dataclass
 class RowwiseAdagradState:
-    accum: torch.Tensor  # (V, 2) fp32 grad-square accumulator, one column a half
+    # fp32 grad-square accumulator: (V,) for a table of one logical table,
+    # (V, halves) for a table that lane-fuses ``halves`` of them
+    accum: torch.Tensor
 
 
-def init_rowwise_adagrad(table: torch.Tensor) -> RowwiseAdagradState:
-    return RowwiseAdagradState(torch.zeros(table.shape[0], HALVES, dtype=torch.float32,
-                                           device=table.device))
+def init_rowwise_adagrad(table: torch.Tensor, halves: int = 1) -> RowwiseAdagradState:
+    shape = (table.shape[0],) if halves == 1 else (table.shape[0], halves)
+    return RowwiseAdagradState(torch.zeros(shape, dtype=torch.float32, device=table.device))
+
+
+def _accum_2d(state: RowwiseAdagradState) -> torch.Tensor:
+    """The accumulator as a (V, halves) view of its storage."""
+    return state.accum.view(state.accum.shape[0], -1)
 
 
 def dedup_rows(ids: torch.Tensor, grads: torch.Tensor,
@@ -103,12 +112,13 @@ def rowwise_adagrad_update(table: torch.Tensor, state: RowwiseAdagradState, ids:
                            row_grads: torch.Tensor, *, lr: float, pad_row: int,
                            eps: float = 1e-8, weight_decay: float = 0.0,
                            exact_dedup: bool = True,
-                           rows: Optional[torch.Tensor] = None,
-                           sweep: bool = False) -> RowwiseAdagradState:
+                           rows: Optional[torch.Tensor] = None) -> RowwiseAdagradState:
     """One row-wise AdaGrad step on ``table`` (V, W), in place.  ids (...,)
     int and row_grads (..., W): the per-occurrence gradients of the
     gathered rows, duplicates allowed.  ``pad_row`` (the sequence pad id)
-    never changes, as torch's padding_idx.
+    never changes, as torch's padding_idx.  The table holds as many
+    W/halves-wide logical tables as ``state``'s accumulator has columns
+    ((V,): one), each with its own second moment.
 
     ``exact_dedup``: sum each row's duplicates first, then one step a row
     (textbook AdaGrad); else the streaming scatter path (module
@@ -116,54 +126,73 @@ def rowwise_adagrad_update(table: torch.Tensor, state: RowwiseAdagradState, ids:
     post-accumulation statistic and equals the exact step for a row that
     occurs once.  ``rows``: the table's rows at ``ids`` as the forward
     gathered them (pad-masked), reused by the streaming path's weight
-    decay instead of a second gather.  ``sweep``: the streaming path with
-    the rows merged by ``sweep_rows_add`` (module docstring); it takes no
-    ``rows`` and no ``exact_dedup``."""
-    if sweep and (exact_dedup or rows is not None):
-        raise ValueError("the sweep update is the streaming path: exact_dedup=False, no rows")
+    decay instead of a second gather.  The streaming path with the rows
+    merged by ``sweep_rows_add`` is ``rowwise_adagrad_sweep_update``."""
     V, W = table.shape
+    acc = _accum_2d(state)
+    Dh = W // acc.shape[1]
     g = row_grads.reshape(-1, W)
     ids = ids.reshape(-1)
     g = g * (ids != pad_row)[:, None].to(g.dtype)
     if not exact_dedup:
-        row_add = _sweep_add if sweep else scatter_add_rows
-        return _streaming_adagrad(table, state, ids.long(), g.float(), lr=lr, pad_row=pad_row,
-                                  eps=eps, weight_decay=weight_decay, rows=rows,
-                                  row_add=row_add)
+        delta = _streaming_delta(table, acc, ids.long(), g.float(), lr=lr, pad_row=pad_row,
+                                 eps=eps, weight_decay=weight_decay, rows=rows)
+        scatter_add_rows(table, ids.long(), delta)
+        return state
     uids, gu, n_unique = dedup_rows(ids, g, drop_index=V)
     # padding slots repeat the last unique slot, so their writes are
     # copies of its values
     slot = torch.minimum(torch.arange(uids.shape[0], device=uids.device), n_unique - 1)
     uids, gu = uids[slot], gu[slot]
     # the mean square of each half, and each half's step size widened to its lanes
-    acc_new = state.accum[uids] + (gu * gu).reshape(-1, HALVES, W // HALVES).mean(dim=2)
-    scale = (lr / (torch.sqrt(acc_new) + eps)).repeat_interleave(W // HALVES, dim=1)
+    acc_new = acc[uids] + (gu * gu).reshape(-1, acc.shape[1], Dh).mean(dim=2)
+    scale = (lr / (torch.sqrt(acc_new) + eps)).repeat_interleave(Dh, dim=1)
     rows = table[uids].float()
     decay = 1.0 - lr * weight_decay * (uids != pad_row)[:, None].float()
     new_rows = rows * decay - scale * gu
     table.index_copy_(0, uids, new_rows.to(table.dtype))
-    state.accum.index_copy_(0, uids, acc_new)
+    acc.index_copy_(0, uids, acc_new)
     return state
 
 
-def _sweep_add(table, ids, delta):
-    sweep_scatter.sweep_rows_add([table], ids, [delta])
-
-
-def _streaming_adagrad(table, state, ids, g, *, lr, pad_row, eps, weight_decay, rows, row_add):
-    """The no-sort path of ``rowwise_adagrad_update``: ids (N,) int64, g (N,
-    W) fp32 pad-masked; ``row_add(table, ids, delta)`` adds the deltas."""
+def _streaming_delta(table, acc, ids, g, *, lr, pad_row, eps, weight_decay, rows):
+    """The no-sort path of ``rowwise_adagrad_update`` up to the row merge:
+    ids (N,) int64, g (N, W) fp32 pad-masked; adds each occurrence's
+    per-half mean square into ``acc`` (V, halves) -> the deltas (N, W)
+    fp32 to add to the table's rows."""
     V, W = table.shape
-    Dh = W // HALVES
+    Dh = W // acc.shape[1]
     # each half's mean square, as the sum of its lanes over Dh
-    scatter_add_rows(state.accum, ids, (g * g).reshape(-1, HALVES, Dh).sum(dim=2) / Dh)
-    scale = (lr / (torch.sqrt(state.accum[ids]) + eps)).repeat_interleave(Dh, dim=1)
+    scatter_add_rows(acc, ids, (g * g).reshape(-1, acc.shape[1], Dh).sum(dim=2) / Dh)
+    scale = (lr / (torch.sqrt(acc[ids]) + eps)).repeat_interleave(Dh, dim=1)
     delta = -scale * g
     if weight_decay:
         mask = (ids != pad_row)[:, None].float()
         delta = delta - (lr * weight_decay) * _decay_rows(table, ids, mask, rows)
-    row_add(table, ids, delta)
-    return state
+    return delta
+
+
+@torch.no_grad()
+def rowwise_adagrad_sweep_update(tables: Sequence[torch.Tensor],
+                                 states: Sequence[RowwiseAdagradState], ids: torch.Tensor,
+                                 row_grads: Sequence[torch.Tensor], *, lr: float, pad_row: int,
+                                 eps: float = 1e-8, weight_decay: float = 0.0) -> List:
+    """The streaming row-wise AdaGrad step (``exact_dedup=False``) on
+    several tables of one shape touched at the same ids (the split att /
+    rep pair, or the one lane-fused table), in place, the rows of all of
+    them merged by ONE ``sweep_rows_add`` launch: the JAX
+    ``rowwise_adagrad_sweep_update``.  Per table as
+    ``rowwise_adagrad_update``'s streaming path, the decay on fresh rows.
+    -> the states."""
+    ids = ids.reshape(-1).long()
+    mask = (ids != pad_row)[:, None]
+    deltas = []
+    for table, state, g in zip(tables, states, row_grads):
+        g = g.float().reshape(ids.numel(), table.shape[1]) * mask
+        deltas.append(_streaming_delta(table, _accum_2d(state), ids, g, lr=lr, pad_row=pad_row,
+                                       eps=eps, weight_decay=weight_decay, rows=None))
+    sweep_scatter.sweep_rows_add(list(tables), ids, deltas)
+    return list(states)
 
 
 @torch.no_grad()

@@ -1,33 +1,49 @@
-"""The sparse-table train step, the eval step and the K-fold loop.
+"""The train step (sparse-table and dense-table modes), the eval step and
+the K-fold loop.
 
 Port of ``tossctr_tpu/train/trainer.py``: ``build_model``,
-``make_optimizer``, ``make_train_state``, ``make_train_step`` (its
-sparse-table branch, in all its table-update modes), ``make_eval_step``,
+``make_optimizer``, ``make_train_state``, ``make_train_step`` (both its
+branches, in all their table-update modes), ``make_eval_step``,
 ``run_validation``, ``train_one_fold`` and ``train_main``.  The step is
 an eager PyTorch function on the card:
 
   1. forward with every dropout of the config (kernel dropout seeds from
      a CPU generator seeded from (train seed, step): ``fold_in``),
-  2. WLL-style BCE + ``aux_head_weight`` x the aux head's,
-  3. backward, through the kernels' backward kernels,
-  4. the gradient of the gathered table rows (``models/dare.py`` taps),
+  2. WLL-style BCE + ``aux_head_weight`` x the aux head's, and with
+     ``loss.apply_extra_losses`` ``lambda_rank`` x the pairwise AUC loss
+     (its negatives drawn from a generator seeded from the step seed) and
+     ``lambda_logit_l2`` x the mean squared logit (over the valid rows),
+  3. backward, through the kernels' backward kernels.
+  Sparse-table mode (``train.embedding_optimizer`` rowwise_adagrad or
+  sparse_sgd):
+  4. the gradient of each sequence table's gathered rows (``models/dare.py``
+     taps: the lane-fused table's, or the split att and rep tables'),
   5. global-norm clip over the dense and row gradients together,
   6. AdamW on the dense parameters, lr from the warmup + cosine schedule
      at the step the update starts from,
-  7. the sequence table's row-sparse update, as the JAX sparse step
+  7. each sequence table's row-sparse update, as the JAX sparse step
      dispatches it: row-wise AdaGrad with exact dedup, or streaming
      (``exact_dedup: false``, the default) through a scatter or, with
-     ``train.table_update: sweep``, through the ``sweep_rows_add`` kernel;
-     or sparse SGD,
-  8. EMA of the dense parameters (the table has no shadow).
+     ``train.table_update: sweep``, through the ``sweep_rows_add`` kernel
+     (the split pair in one launch); or sparse SGD,
+  8. EMA of the dense parameters (the tables have no shadow).
+  Dense-table mode (``adamw``, the schema's default, ``adafactor`` or
+  ``sgd``): the tables are trainable parameters,
+  4. optax's ``clip_by_global_norm`` over every gradient,
+  5. ``adamw``: one AdamW over every parameter; ``adafactor`` / ``sgd``:
+     that optimizer (``train/adafactor.py``) on the table parameters (a
+     flax path holding ``emb_att``, ``emb_rep``, ``emb_tables`` or
+     ``table_``, the categorical tables too) and AdamW on the rest,
+  6. EMA of every parameter the configured filter keeps, tables included.
 
 The model's parameters are the state's parameters: the step updates
 them in place.  The fold loop around it: the stratified group K-fold
 split (``cv_split.py``), per-epoch validation on the EMA weights with
 host metrics, temperature calibration, best-epoch checkpoints, early
-stop, and step-granular resume.  Not ported: the dense-mode step, the
-device mesh and distributed runtime (a config that asks for more than
-one device raises), ``debug_nans`` and the device metrics.
+stop, and step-granular resume.  Not ported (``_check_ported`` refuses
+them, naming their ROADMAP item): streaming and proxy selection,
+isotonic calibration, the device metrics, the device mesh and
+distributed runtime and ``debug_nans``.
 """
 
 from __future__ import annotations
@@ -45,10 +61,17 @@ from ..data.loader import BatchIterator, DevicePrefetcher
 from ..data.sampler import BalancedBatchSampler
 from ..eval.calibration import Calibrator
 from ..eval.metrics import final_score
-from ..models.ctr_model import CTRModel, build_model, init_params, resolve_device
+from ..models.ctr_model import (
+    SPARSE_EMB_OPTS,
+    CTRModel,
+    build_model,
+    init_params,
+    resolve_device,
+)
 from ..models.layers import DropoutRNG
 from ..utils.log import Logger
 from ..utils.seed import set_seed
+from .adafactor import SGD, Adafactor
 from .checkpoint import (
     finalize_fold_checkpoint,
     fold_ckpt_exists,
@@ -58,11 +81,12 @@ from .checkpoint import (
 )
 from .cv_split import StratifiedGroupKFold
 from .ema import EmaState, ema_params, init_ema, make_ema_mask, update_ema
-from .loss import bce_wll_style
+from .loss import bce_wll_style, logit_l2, pairwise_auc_loss
 from .sched import make_lr_schedule
 from .sparse_embed import (
     RowwiseAdagradState,
     init_rowwise_adagrad,
+    rowwise_adagrad_sweep_update,
     rowwise_adagrad_update,
     sparse_sgd_update,
 )
@@ -73,53 +97,87 @@ __all__ = [
     "build_model",
     "dense_params",
     "ema_filter_for",
+    "is_embedding_param",
     "is_sparse_mode",
     "make_eval_step",
     "make_optimizer",
     "make_train_state",
     "make_train_step",
     "run_validation",
+    "seq_tables",
     "step_seed",
     "train_main",
     "train_one_fold",
 ]
 
-# the lane-fused (V, 2D) sequence table: updated row-sparse, no EMA shadow
+# the lane-fused (V, 2D) sequence table, the default layout
 SEQ_TABLE = "dare.emb_tables"
+# the sequence tables (the fused one, or the split pair) and the tap of
+# each one's gathered rows (models/dare.py)
 SEQ_TABLES = ("emb_tables", "emb_att", "emb_rep")
-SPARSE_EMB_OPTS = ("rowwise_adagrad", "sparse_sgd")
+ROW_TAPS = {"emb_tables": "table_rows", "emb_att": "att_rows", "emb_rep": "rep_rows"}
+DENSE_EMB_OPTS = ("adamw", "adafactor", "sgd")
+# a parameter whose flax path holds one of these takes the dense-mode
+# table optimizer (the categorical table_{d} tables among them)
+_EMB_MARKERS = ("emb_att", "emb_rep", "emb_tables", "table_")
 
 
 def is_sparse_mode(cfg) -> bool:
     return cfg.train.embedding_optimizer in SPARSE_EMB_OPTS
 
 
+def is_embedding_param(name: str) -> bool:
+    """Whether the parameter ``name`` takes the dense-mode table optimizer:
+    its flax path (``params/`` + the name with ``/`` for ``.``) holds a
+    table marker."""
+    path = "params/" + name.replace(".", "/")
+    return any(m in path for m in _EMB_MARKERS)
+
+
 def _check_ported(cfg) -> None:
-    t = cfg.train
+    """Refuse a config that asks for what the port has not got yet, naming
+    each part's ROADMAP item.  ``eval.device_metrics: null`` (auto) takes
+    the host metrics, as the JAX package does on every backend but a
+    TPU."""
+    s, m, cal = cfg.sequence, cfg.mesh, cfg.calibration
     unported = {
-        "train.embedding_optimizer other than rowwise_adagrad or sparse_sgd (dense-mode "
-        "tables)": t.embedding_optimizer not in SPARSE_EMB_OPTS,
-        "loss.apply_extra_losses (rank / logit-l2 auxiliaries)":
-            bool((cfg.loss or {}).get("apply_extra_losses", False)),
+        "sequence.select_chunk / select_proxy (streaming / proxy selection, ROADMAP queue 1 "
+        "item 2)": bool(s.select_chunk or s.select_proxy),
+        "calibration.method other than temperature (isotonic calibration, ROADMAP queue 1 "
+        "item 2)": bool(cal.enabled) and cal.method != "temperature",
+        "eval.device_metrics: true (the device AP/WLL, ROADMAP queue 1 item 6)":
+            bool(cfg.eval.device_metrics),
+        "mesh.data > 1 or mesh.model > 1 (more than one device, ROADMAP queue 1 item 8)":
+            m.data > 1 or m.model > 1,
+        "extra.debug_nans (ROADMAP queue 1 item 8)": bool(cfg.extra.get("debug_nans", False)),
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(f"not ported to tossctr_tpu_torch yet: {', '.join(asked)}")
 
 
+def seq_tables(model: CTRModel) -> Dict[str, torch.nn.Parameter]:
+    """{name: parameter} of the sequence tables: ``emb_tables``, or
+    ``emb_att`` and ``emb_rep``."""
+    return {n: getattr(model.dare, n) for n in SEQ_TABLES if hasattr(model.dare, n)}
+
+
 def dense_params(model: CTRModel) -> Dict[str, torch.nn.Parameter]:
-    """The parameters AdamW updates: every one but the sequence table."""
-    return {n: p for n, p in model.named_parameters() if n != SEQ_TABLE}
+    """Every parameter but the sequence tables."""
+    tables = {f"dare.{n}" for n in SEQ_TABLES}
+    return {n: p for n, p in model.named_parameters() if n not in tables}
 
 
 def make_optimizer(cfg, steps_per_epoch: int):
     """-> (AdamW settings, schedule).  The settings are torch's AdamW
     arguments (the reference's torch defaults, as optax.adamw is given
-    them); ``make_train_state`` builds the optimizer over the dense
-    parameters, and the step sets its lr from ``schedule`` each step.
-    There is no clip stage: the step clips the dense and row gradients
-    together."""
+    them); ``make_train_state`` builds the optimizers (AdamW over the
+    parameters it takes, and the dense-mode table optimizer), and the step
+    sets their lr from ``schedule`` each step and clips the gradients
+    itself."""
     t = cfg.train
+    if t.embedding_optimizer not in SPARSE_EMB_OPTS + DENSE_EMB_OPTS:
+        raise ValueError(f"unknown embedding_optimizer {t.embedding_optimizer}")
     schedule = make_lr_schedule(t.lr, warmup_steps=t.warmup_epochs * steps_per_epoch,
                                 total_steps=t.epochs * steps_per_epoch, cosine=t.cosine)
     tx = dict(lr=float(t.lr), betas=(0.9, 0.999), eps=1e-8, weight_decay=float(t.weight_decay))
@@ -137,36 +195,54 @@ def ema_filter_for(cfg) -> List[str]:
 @dataclass
 class TrainState:
     model: CTRModel  # its parameters are the state's parameters
-    opt: torch.optim.Optimizer  # AdamW over dense_params(model)
+    opt: torch.optim.Optimizer  # AdamW over the parameters it takes
     ema: Optional[EmaState]
     step: int  # global step, 1-based after the first update
-    table_opt: Dict[str, RowwiseAdagradState]  # empty for sparse SGD
+    table_opt: Dict[str, RowwiseAdagradState]  # sparse AdaGrad's, by table; else empty
+    emb_opt: Optional[Any] = None  # the dense-mode Adafactor or SGD of the tables
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
 
 def make_train_state(cfg, model: CTRModel, tx) -> TrainState:
-    """The initial state of an initialised ``model``: AdamW over its dense
-    parameters, the EMA shadow of the parameters the EMA mask tracks, and
-    the table's optimizer state: the (V, 2) AdaGrad accumulator, none for
-    sparse SGD."""
+    """The initial state of an initialised ``model``: the optimizers, the
+    EMA shadow of the parameters the EMA mask tracks, and in sparse mode
+    the tables' optimizer state: each table's AdaGrad accumulator ((V, 2)
+    for the lane-fused table, (V,) for a split one), none for sparse SGD.
+    AdamW takes the dense parameters (sparse mode), every parameter
+    (``adamw``), or those ``is_embedding_param`` leaves to ``adafactor`` /
+    ``sgd``."""
     _check_ported(cfg)
-    if not cfg.model.fused_seq_tables:
-        raise NotImplementedError("not ported to tossctr_tpu_torch yet: split sequence tables")
-    dense = dense_params(model)
-    opt = torch.optim.AdamW(list(dense.values()), **tx)
+    emb_opt = cfg.train.embedding_optimizer
     params = dict(model.named_parameters())
+    table_opt, emb = {}, None
+    if is_sparse_mode(cfg):
+        adam = list(dense_params(model).values())
+        if emb_opt == "rowwise_adagrad":
+            table_opt = {n: init_rowwise_adagrad(t, halves=2 if n == "emb_tables" else 1)
+                         for n, t in seq_tables(model).items()}
+    elif emb_opt == "adamw":
+        adam = list(params.values())
+    else:
+        adam = [p for n, p in params.items() if not is_embedding_param(n)]
+        tables = {n: p for n, p in params.items() if is_embedding_param(n)}
+        emb = Adafactor(tables) if emb_opt == "adafactor" else SGD(tables)
+    opt = torch.optim.AdamW(adam, **tx)
     ema = init_ema(params, make_ema_mask(params, ema_filter_for(cfg))) if cfg.ema.enabled else None
-    table_opt = ({"emb_tables": init_rowwise_adagrad(model.dare.emb_tables)}
-                 if cfg.train.embedding_optimizer == "rowwise_adagrad" else {})
-    return TrainState(model, opt, ema, 0, table_opt)
+    return TrainState(model, opt, ema, 0, table_opt, emb)
 
 
 def step_seed(base_seed: int, step: int) -> int:
     """The seed of one step's dropout generators: the port's
     ``jax.random.fold_in(base_key, step)``."""
     return (int(base_seed) * 0x9E3779B1 + int(step) * 0x85EBCA77 + 1) % (2**63 - 1)
+
+
+def rank_seed(step_seed_: int) -> int:
+    """The seed of one step's pairwise-loss draws, apart from its dropout
+    seed (the JAX step splits its key in two)."""
+    return (int(step_seed_) * 0x2545F491 + 0x6A09E667) % (2**63 - 1)
 
 
 def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
@@ -182,74 +258,72 @@ def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 def make_train_step(model: CTRModel, tx, cfg, base_seed: int,
                     schedule: Callable[[int], float]):
-    """-> train_step(state, batch) -> (state, loss): one sparse-table
-    step on ``batch`` (tensors on the model's device: X_num, X_mask,
-    X_cat, seq, y and optionally valid), in place.  The loss is a device
-    scalar: reading it is the caller's sync.  The EMA updates the
-    parameters the state's shadow holds."""
+    """-> train_step(state, batch) -> (state, loss): one train step on
+    ``batch`` (tensors on the model's device: X_num, X_mask, X_cat, seq, y
+    and optionally valid), in place, in the config's table mode (module
+    docstring).  The loss is a device scalar: reading it is the caller's
+    sync.  The EMA updates the parameters the state's shadow holds."""
     _check_ported(cfg)
     emb_opt = cfg.train.embedding_optimizer
+    sparse = is_sparse_mode(cfg)
     exact_dedup = bool(cfg.train.extra.get("exact_dedup", False))
     table_update = str(cfg.train.extra.get("table_update", "auto"))
-    if table_update == "sweep" and exact_dedup:
+    if sparse and table_update == "sweep" and exact_dedup:
         raise ValueError(
             "train.table_update: 'sweep' is incompatible with train.exact_dedup: true (the "
             "sweep kernel implements the streaming scatter-add path) -- disable one explicitly"
         )
     # "auto" takes the scatter, as the JAX step does; the sweep serves the
-    # AdaGrad table only
+    # AdaGrad tables only
     use_sweep = emb_opt == "rowwise_adagrad" and table_update == "sweep"
     aux_w = float(cfg.model.qnn_alpha.aux_head_weight)
+    loss_cfg = cfg.loss or {}
+    # the reference defines the rank and logit-l2 auxiliaries but does not
+    # call them; apply_extra_losses opts in
+    extra = bool(loss_cfg.get("apply_extra_losses", False))
+    lam_rank = float(loss_cfg.get("lambda_rank", 0.0)) if extra else 0.0
+    lam_l2 = float(loss_cfg.get("lambda_logit_l2", 0.0)) if extra else 0.0
+    n_neg = int(loss_cfg.get("num_neg_per_pos", 8))
+    hard_frac = float(loss_cfg.get("hard_neg_frac", 0.0))
     clip = float(cfg.train.grad_clip_norm or 0.0)
     wd = float(cfg.train.weight_decay)
     pad_id = int(cfg.sequence.pad_id)
     ema_cfg = cfg.ema
-    dense = list(dense_params(model).values())
+    tables = seq_tables(model)
+    # the parameters this step's gradients land on
+    trained = list((dense_params(model) if sparse else dict(model.named_parameters())).values())
     device = next(model.parameters()).device
 
-    def total_loss(z, aux, y, valid):
+    def total_loss(z, aux, y, valid, seed):
         loss = bce_wll_style(z, y, valid=valid)
         if aux_w > 0:
             loss = loss + aux_w * bce_wll_style(aux, y, valid=valid)
+        if lam_rank > 0:
+            gen = torch.Generator(device=z.device).manual_seed(rank_seed(seed))
+            loss = loss + lam_rank * pairwise_auc_loss(z, y, gen, num_neg_per_pos=n_neg,
+                                                       hard_frac=hard_frac, valid=valid)
+        if lam_l2 > 0:
+            if valid is None:
+                loss = loss + lam_l2 * logit_l2(z)
+            else:  # the mean over the valid rows
+                v = valid.float()
+                loss = loss + lam_l2 * ((z.float() ** 2 * v).sum() / v.sum().clamp(min=1.0))
         return loss
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        taps: dict = {}
-        rng = DropoutRNG(step_seed(base_seed, state.step), device)
-        for p in dense:
+    def forward_backward(state, batch, taps):
+        seed = step_seed(base_seed, state.step)
+        rng = DropoutRNG(seed, device)
+        for p in trained:
             p.grad = None
         z, _, aux = model(batch, rng=rng, taps=taps)
-        loss = total_loss(z, aux, batch["y"], batch.get("valid"))
+        loss = total_loss(z, aux, batch["y"], batch.get("valid"), seed)
         loss.backward()
-        for p in dense:  # optax decays a parameter that got no gradient too
+        for p in trained:  # optax decays a parameter that got no gradient too
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        g_rows = taps["table_rows"].grad
-        if clip > 0:  # one global norm over the dense AND the row gradients
-            gn = _global_norm([p.grad for p in dense] + [g_rows])
-            scale = torch.where(gn > clip, clip / (gn + 1e-6), torch.ones_like(gn))
-            for p in dense:
-                p.grad.mul_(scale)
-            # JAX promotes bf16 rows times an fp32 scalar array to fp32;
-            # torch would keep bf16 for a 0-d tensor, so promote explicitly
-            g_rows = g_rows.float() * scale
-        lr_t = schedule(state.step)
-        for group in state.opt.param_groups:
-            group["lr"] = lr_t
-        state.opt.step()
-        table, ids = model.dare.emb_tables, taps["sel_ids"]
-        # the forward rows serve the lazy decay only where they lose nothing
-        # against a fresh fp32 gather: a table stored in the compute dtype
-        fwd_rows = taps["table_rows"].detach()
-        reuse = fwd_rows if table.dtype == fwd_rows.dtype else None
-        if emb_opt == "rowwise_adagrad":
-            # the sweep's decay reads fresh rows of the table, as the JAX one's
-            rowwise_adagrad_update(table, state.table_opt["emb_tables"], ids, g_rows, lr=lr_t,
-                                   pad_row=pad_id, weight_decay=wd, exact_dedup=exact_dedup,
-                                   rows=None if use_sweep else reuse, sweep=use_sweep)
-        else:
-            sparse_sgd_update(table, ids, g_rows, lr=lr_t, pad_row=pad_id, weight_decay=wd,
-                              rows=reuse)
+        return loss
+
+    def finish(state, loss):
         state.step += 1
         if state.ema is not None:
             update_ema(state.ema, state.params(), state.step,
@@ -260,7 +334,62 @@ def make_train_step(model: CTRModel, tx, cfg, base_seed: int,
                        update_interval=int(ema_cfg.update_interval))
         return state, loss.detach()
 
-    return train_step
+    def adam_step(state, lr_t):
+        for group in state.opt.param_groups:
+            group["lr"] = lr_t
+        state.opt.step()
+
+    def dense_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        loss = forward_backward(state, batch, None)
+        if clip > 0:  # optax's clip_by_global_norm, in each gradient's dtype
+            gn = _global_norm([p.grad for p in trained])
+            keep = gn < clip
+            for p in trained:
+                p.grad = torch.where(keep, p.grad, p.grad / gn.to(p.grad.dtype) * clip)
+        lr_t = schedule(state.step)
+        adam_step(state, lr_t)
+        if state.emb_opt is not None:
+            state.emb_opt.step(lr_t)
+        return finish(state, loss)
+
+    def sparse_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        taps: dict = {}
+        loss = forward_backward(state, batch, taps)
+        g_rows = {n: taps[ROW_TAPS[n]].grad for n in tables}
+        if clip > 0:  # one global norm over the dense AND the row gradients
+            gn = _global_norm([p.grad for p in trained] + list(g_rows.values()))
+            scale = torch.where(gn > clip, clip / (gn + 1e-6), torch.ones_like(gn))
+            for p in trained:
+                p.grad.mul_(scale)
+            # JAX promotes bf16 rows times an fp32 scalar array to fp32;
+            # torch would keep bf16 for a 0-d tensor, so promote explicitly
+            g_rows = {n: g.float() * scale for n, g in g_rows.items()}
+        lr_t = schedule(state.step)
+        adam_step(state, lr_t)
+        ids = taps["sel_ids"]
+        if use_sweep:  # every table's rows in one sweep_rows_add launch
+            # the sweep's decay reads fresh rows of the tables, as the JAX one's
+            rowwise_adagrad_sweep_update(list(tables.values()),
+                                         [state.table_opt[n] for n in tables], ids,
+                                         list(g_rows.values()), lr=lr_t, pad_row=pad_id,
+                                         weight_decay=wd)
+            return finish(state, loss)
+        for n, table in tables.items():
+            # the forward rows serve the lazy decay only where they lose
+            # nothing against a fresh fp32 gather: a table stored in the
+            # compute dtype
+            fwd_rows = taps[ROW_TAPS[n]].detach()
+            reuse = fwd_rows if table.dtype == fwd_rows.dtype else None
+            if emb_opt == "rowwise_adagrad":
+                rowwise_adagrad_update(table, state.table_opt[n], ids, g_rows[n], lr=lr_t,
+                                       pad_row=pad_id, weight_decay=wd,
+                                       exact_dedup=exact_dedup, rows=reuse)
+            else:
+                sparse_sgd_update(table, ids, g_rows[n], lr=lr_t, pad_row=pad_id,
+                                  weight_decay=wd, rows=reuse)
+        return finish(state, loss)
+
+    return sparse_step if sparse else dense_step
 
 
 def make_eval_step(model: CTRModel):
@@ -274,23 +403,6 @@ def make_eval_step(model: CTRModel):
         return z, p
 
     return eval_step
-
-
-def _check_fold_loop(cfg) -> None:
-    """Refuse what the fold loop does not port.  ``eval.device_metrics:
-    null`` (auto) takes the host metrics, as the JAX package does on every
-    backend but a TPU."""
-    m = cfg.mesh
-    asked = {
-        "eval.device_metrics: true (the device AP/WLL, ROADMAP queue 1 item 6)":
-            bool(cfg.eval.device_metrics),
-        "mesh.data > 1 or mesh.model > 1 (more than one device, ROADMAP queue 1 item 8)":
-            m.data > 1 or m.model > 1,
-        "extra.debug_nans (ROADMAP queue 1 item 8)": bool(cfg.extra.get("debug_nans", False)),
-    }
-    asked = [k for k, v in asked.items() if v]
-    if asked:
-        raise NotImplementedError(f"not ported to tossctr_tpu_torch yet: {', '.join(asked)}")
 
 
 def run_validation(eval_step, params, loader, device) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -322,7 +434,7 @@ def train_one_fold(cfg, fold: int, idx_tr: np.ndarray, idx_va: np.ndarray, manif
     started again resumes from it: the samplers are pure functions of
     (seed, epoch) and the step's dropout of (seed, step), so a resumed
     fold repeats the uninterrupted one's trajectory."""
-    _check_fold_loop(cfg)
+    _check_ported(cfg)
     t = cfg.train
     dev = resolve_device(device)
     cache = ShardCache(manifest_path)
@@ -461,7 +573,7 @@ def train_main(cfg, device="cuda") -> str:
     (fold-skip resume), then stamped complete.  -> the experiment
     directory."""
     dev = resolve_device(device)
-    _check_fold_loop(cfg)
+    _check_ported(cfg)
     os.makedirs(cfg.logging.log_dir, exist_ok=True)
     set_seed(cfg.seed, deterministic=cfg.deterministic)
     exp_dir = cfg.exp_dir()
