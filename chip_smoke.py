@@ -89,6 +89,30 @@
    step in the sweep mode only), only selected rows changed and never the
    pad row, the sweep mode's step profiled, and each mode's fp32 512-row
    step against the CPU and against the plain versions on the card.
+8b. Select phase (``select_phase``): the flagship with each selection
+   pass at full width (B = 8192, L = 400, K = 60 padded to 64, the
+   10M-row bf16 table): SELECT_STEPS timed train steps each of the dense
+   pass, the proxy prefilter (``sequence.select_proxy``, block 64, 128
+   candidates: ``bench.py``'s default) and the streaming pass
+   (``select_chunk: 128``: 112 phantom positions), on the same seeded
+   weights and batches, 3 launches a step of each RMS encoder kernel, a
+   step of each profiled (the selection's device time; the proxy's by
+   part: build, stage 1, stage 2), then the three modes' steps in turns;
+   the three passes' ids on one batch (the proxy at block 1 bit-equal to the dense ids, the
+   streaming ids equal to them on CHECK_BANDS' ``select`` share of rows,
+   the proxy's recall at block 64 logged); the proxy's 512-row step in
+   fp32 and in bf16, and the streaming pass's in fp32, against the CPU
+   and the plain versions on the flagship check's batch and parameters
+   with the table cut by whole blocks (``block_cut_check``: the block
+   means are the full table's), held to the unchanged CHECK_BANDS (the
+   bf16 proxy's ids shared with the CPU reported, not held); the
+   native gather's host time
+   against NumPy's; one fold of ``train_main`` with the proxy,
+   ``eval.device_metrics: true``, ``temperature+isotonic`` and the native
+   gather, its AP / WLL on the card within 1e-5 of the host's on the
+   fold's replayed scores; the OOF replay (``python -m
+   tossctr_tpu_torch.tools.run_calibration``) and ``infer_main`` serving
+   the fold with the OOF calibrator.
 9. Reference-tables phase (``reference_tables_phase``): the flagship
    with the split ``emb_att`` / ``emb_rep`` tables (two (10M, 64) bf16
    tables) in ``rowwise_adagrad`` + ``table_update: sweep`` (timed
@@ -133,8 +157,10 @@
    plain versions at odd shapes too (K % 4 != 0, one and three heads, a
    single row, element counts not a multiple of 4), and timed.
 14. Prints the ``kernels`` JSON line (the thirteen rows' kernels: the
-   eleven ported kernels, the two table sweeps and the two mask dumps),
-   then ``{"ok": true, "device": ...}``.
+   eleven ported kernels, the two table sweeps and the two mask dumps;
+   each with its launches in every phase that counts them,
+   ``launches_select`` the select phase's proxy steps'), then ``{"ok":
+   true, "device": ...}``.
 
 Any failure exits non-zero before the last line.  Scratch files live in a
 temporary directory under ``build/`` that is removed at exit.
@@ -1940,6 +1966,381 @@ def stream_phase(train_cache, dev):
     return sweep_launches
 
 
+SELECT_STEPS = 3  # timed steps of each selection mode, after the checked first and a warm one
+SELECT_ROUNDS = 5  # then rounds of SELECT_STEPS steps a mode, the modes in turns
+SELECT_MODES = {  # bench.py's default (the flagship TPU mode), then the streaming pass
+    "dense": {},
+    "proxy": dict(select_proxy=True, select_proxy_block=64, select_proxy_candidates=128),
+    "stream": dict(select_chunk=128),  # 400 positions: 4 chunks, 112 phantom positions
+}
+SELECT_FOLD_ROWS = 5 * 8192  # the select fold's synthetic train rows: its fold trains on 4/5
+
+
+def select_ids_check(cfg, model, batch, dev):
+    """The three selection passes on the card on one full-width batch (B =
+    8192, L = 400, the model's 10M-row bf16 table, a seeded bf16 query):
+    the proxy at block 1 bit-equal to the dense ids, the streaming ids
+    equal to the dense ids on at least CHECK_BANDS' ``select`` share of the
+    rows (bf16 scores of a (B, 128, D) product may round otherwise than a
+    (B, 400, D) one's), and the proxy's recall of the dense top-K at block
+    64 (logged, not held).  -> {name: number}."""
+    import torch
+
+    from tossctr_tpu_torch.ops.topk_select import dare_select_ids
+
+    D = cfg.model.emb_dim
+    att = model.dare.emb_tables.detach()[:, :D]
+    seq = batch["seq"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    query = torch.randn(seq.shape[0], D, generator=gen, device=dev).to(cfg.compute_dtype)
+    kw = dict(top_k=cfg.sequence.top_k, tau=cfg.sequence.recency_tau, pad_id=cfg.sequence.pad_id)
+    idx, ids, _ = dare_select_ids(att, seq, query, **kw)
+    got = {}
+    b1_idx, b1_ids, _ = dare_select_ids(att, seq, query, select_proxy={"block": 1,
+                                                                          "candidates": 128}, **kw)
+    got["proxy block 1 bit-equal rows"] = float(((b1_idx == idx) & (b1_ids == ids))
+                                               .all(dim=1).double().mean())
+    s_idx, s_ids, _ = dare_select_ids(att, seq, query, select_chunk=128, **kw)
+    got["streaming rows equal"] = float(((s_idx == idx) & (s_ids == ids))
+                                        .all(dim=1).double().mean())
+    p = SELECT_MODES["proxy"]
+    p_idx, p_ids, _ = dare_select_ids(att, seq, query, select_proxy={
+        "block": p["select_proxy_block"], "candidates": p["select_proxy_candidates"]}, **kw)
+    B, K = idx.shape
+    base = torch.arange(B, device=dev)[:, None] * seq.shape[1]
+    dense_set, proxy_set = (idx + base).reshape(-1), (p_idx + base).reshape(-1)
+    real = (ids != kw["pad_id"]).reshape(-1)
+    found = torch.isin(dense_set[real], proxy_set)
+    got["proxy recall at block 64"] = float(found.double().mean())
+    log(f"[select] the passes on one batch (B={B}, L={seq.shape[1]}, K={K}, the model's table, "
+        f"a seeded bf16 query): " + ", ".join(f"{k} {v:.6f}" for k, v in got.items()))
+    if got["proxy block 1 bit-equal rows"] != 1.0:
+        raise AssertionError("the proxy at block 1 does not select the dense ids")
+    if got["streaming rows equal"] < CHECK_BANDS["bf16"]["select"]:
+        raise AssertionError(f"the streaming pass agrees with the dense one on "
+                             f"{got['streaming rows equal']:.6f} of the rows (band "
+                             f"{CHECK_BANDS['bf16']['select']})")
+    return got
+
+
+def block_cut_check(cache, dev, block):
+    """The flagship one-step check's batch and parameters (as
+    ``compact_check``) with the fused table cut by whole blocks of
+    ``block`` rows: every block the batch's ids fall in is kept, in order
+    (the pad id's block first, so the pad id stays 0), and an id becomes
+    ``new_block * block + id % block``.  The proxy's block means are then
+    the full table's, so the proxy selects what it selects on the full
+    table, and the step is the same step.  -> (batch, state_dict on the
+    CPU, rows kept)."""
+    import torch
+
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+    from tossctr_tpu_torch.data import BatchIterator
+    from tossctr_tpu_torch.models import init_params
+    from tossctr_tpu_torch.train.trainer import build_model
+
+    d = no_kernel_dropouts(flagship_config_dict())
+    d["model"]["table_dtype"] = "float32"
+    cfg = Config.from_dict(d)
+    batch = next(iter(BatchIterator(cache, batch_size=CHECK_ROWS, train=True)))
+    pad = cfg.sequence.pad_id
+    blocks = np.union1d([pad // block], np.unique(batch["seq"] // block))
+    if blocks[0] != pad // block or pad % block:
+        raise AssertionError("the pad id must lead the first kept block")
+    new_block = np.searchsorted(blocks, batch["seq"] // block)
+    batch = dict(batch, seq=(new_block * block + batch["seq"] % block).astype(batch["seq"].dtype))
+    full = init_params(build_model(cfg, cache.dims, dev), seed=77)
+    sd = {k: v.detach() for k, v in full.state_dict().items()}
+    rows = (torch.from_numpy(blocks).to(dev)[:, None] * block
+            + torch.arange(block, device=dev)).reshape(-1)
+    sd["dare.emb_tables"] = sd["dare.emb_tables"][rows]
+    sd = {k: v.cpu() for k, v in sd.items()}
+    del full, rows
+    torch.cuda.empty_cache()
+    return batch, sd, len(blocks) * block
+
+
+def select_profile(mode, state, step, batch):
+    """One train step of a selection mode under torch.profiler: the device
+    time of the selection's ranges (``select.dense``, ``select.streaming``,
+    the proxy's ``select.proxy_build``, ``_stage1`` and ``_stage2``, named
+    in ``ops/topk_select.py``; each forward of the step selects once) and
+    of the whole step.  -> (state, selection ms, step's device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    parts = {}
+    for e in events:
+        if e.key.startswith("select."):
+            # the range's device time, on its CPU-side or its GPU-side entry
+            parts[e.key] = max(parts.get(e.key, 0.0), e.device_time_total / 1e3)
+    total = sum(parts.values())
+    log(f"[select] one {mode} step under the profiler: device busy {device_ms:.3f} ms; the "
+        f"selection's device time {total:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(parts.items()))
+        + ("" if parts else " (no device time found under the ranges)"))
+    return state, total, device_ms
+
+
+def gather_times(cache, n, repeats=5):
+    """Host ms of ``cache.gather`` of ``n`` random rows, the native threaded
+    gather against NumPy's (``TOSSCTR_NATIVE_GATHER=0``), in turns; the
+    median of ``repeats`` each; the two batches must be byte-equal.  Beside
+    it the rows' copy alone (``gather_rows_multi`` against NumPy's fancy
+    indexing of the five arrays, on one shard's sorted rows), the part the
+    native gather replaces."""
+    from tossctr_tpu_torch.native import gather_rows_multi
+
+    idx = np.random.default_rng(3).choice(len(cache), size=min(n, len(cache)), replace=False)
+    arrs = cache.shards[0].arrs
+    keys = ("X_num", "X_mask", "X_cat", "seq", "y")
+    rows = np.sort(idx[idx < cache.shards[0].rows])
+    times = {"native": [], "numpy": [], "copy native": [], "copy numpy": []}
+    saved = os.environ.get("TOSSCTR_NATIVE_GATHER")
+    try:
+        for _ in range(repeats):
+            for kind in ("native", "numpy"):
+                os.environ["TOSSCTR_NATIVE_GATHER"] = "1" if kind == "native" else "0"
+                t0 = time.perf_counter()
+                out = cache.gather(idx, train=True)
+                times[kind].append(1e3 * (time.perf_counter() - t0))
+                if kind == "native":
+                    fast = out
+                elif any(fast[k].tobytes() != out[k].tobytes() for k in out):
+                    raise AssertionError("the native gather's batch is not NumPy's")
+            t0 = time.perf_counter()
+            gather_rows_multi([arrs[k] for k in keys], rows)
+            times["copy native"].append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            [arrs[k][rows] for k in keys]
+            times["copy numpy"].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        if saved is None:
+            os.environ.pop("TOSSCTR_NATIVE_GATHER", None)
+        else:
+            os.environ["TOSSCTR_NATIVE_GATHER"] = saved
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def select_phase(tmp, train_cache, test_man, dev):
+    """Streaming and proxy selection at the flagship's full width (D = 64,
+    L = 400, K = 60 padded to 64, 3 RMS layers, the 10M-row bf16 table,
+    B = 8192, every dropout on):
+
+    (a) SELECT_STEPS timed train steps each of the dense pass, the proxy
+        (``select_proxy``, block 64, 128 candidates: bench.py's default)
+        and the streaming pass (``select_chunk: 128``), after the checked
+        first step and a warm one, the same seeded weights and batches;
+        launch counts as the training phase's (3 layers a step); one step
+        of each profiled, the selection's device time by part; then
+        SELECT_ROUNDS rounds of SELECT_STEPS steps a mode, the modes in
+        turns, their medians compared; the host cost of an empty
+        ``record_function`` range (the selection enters its ranges on
+        every forward);
+    (b) the three passes' ids on one batch (``select_ids_check``);
+    (c) the proxy's 512-row step, in fp32 and in bf16, and the streaming
+        pass's in fp32, held against the CPU and the plain versions
+        (CHECK_BANDS of the amp, unchanged; the bf16 proxy's share of ids
+        selected on both sides reported, not held) on the flagship
+        check's batch and parameters, the table cut by whole blocks
+        (``block_cut_check``; the cut keeps the streaming pass's order
+        too: the renumbering keeps the ids' order);
+    (d) one fold of ``train_main`` with the proxy, ``eval.device_metrics:
+        true``, ``temperature+isotonic`` and the native gather (one epoch
+        over SELECT_FOLD_ROWS synthetic rows); the card's AP / WLL within
+        1e-5 of the host's on the fold's replayed validation scores;
+    (e) the OOF replay (``tools/run_calibration.py``, temperature+isotonic)
+        and ``infer_main`` serving the fold with its calibrator.
+    -> the proxy steps' launches."""
+    import torch
+    from torch.profiler import record_function
+
+    from tossctr_tpu_torch import native
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.config.flagship import flagship_config_dict
+    from tossctr_tpu_torch.data import BatchIterator, ShardCache
+    from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.eval.metrics import final_score, final_score_device
+    from tossctr_tpu_torch.infer import infer_main
+    from tossctr_tpu_torch.models import init_params
+    from tossctr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from tossctr_tpu_torch.tools import run_calibration
+    from tossctr_tpu_torch.train import trainer
+    from tossctr_tpu_torch.train.trainer import build_model
+
+    t_phase = time.time()
+    B = flagship_config_dict()["train"]["batch_size"]
+    loader = BatchIterator(train_cache, batch_size=B, train=True, shuffle=True, seed=7)
+    batches = [to_device(b, dev) for b in loader][:4]
+    runs, proxy_launches = {}, None
+    for mode, over in SELECT_MODES.items():
+        d = flagship_config_dict()
+        d["sequence"].update(over)
+        cfg = Config.from_dict(copy.deepcopy(d))
+        model = init_params(build_model(cfg, train_cache.dims, dev), seed=2031)
+        expected = {k: 3 * SELECT_STEPS if k in RMS_ENCODER else 0 for k in launch_counts()}
+        state, step, launches = trained_steps(cfg, model, batches, SELECT_STEPS,
+                                              f"select {mode}", expected)
+        state, _, _ = select_profile(mode, state, step, batches[0])
+        runs[mode] = [state, step]
+        if mode == "proxy":
+            proxy_launches = launches
+        if mode == "dense":
+            select_ids_check(cfg, model, batches[0], dev)
+        del model
+    # the three modes in turns, so a drift of the card or the host falls on
+    # each alike: SELECT_ROUNDS rounds of SELECT_STEPS steps a mode
+    per_round = {m: [] for m in runs}
+    for r in range(SELECT_ROUNDS):
+        for mode, (state, step) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(SELECT_STEPS):
+                state, loss = step(state, batches[(r + i) % len(batches)])
+            float(loss)
+            torch.cuda.synchronize()
+            per_round[mode].append(1e3 * (time.perf_counter() - t0) / SELECT_STEPS)
+            runs[mode][0] = state
+    med = {m: float(np.median(v)) for m, v in per_round.items()}
+    log(f"[select] ms/step in {SELECT_ROUNDS} rounds of {SELECT_STEPS} steps a mode, in turns "
+        f"(B={B}, the same seeded weights and batches): " + "; ".join(
+            f"{m} median {v:.2f} ms = {1e3 * B / v:.1f} examples/s (rounds "
+            f"{', '.join(f'{x:.2f}' for x in per_round[m])})" for m, v in med.items())
+        + f"; the proxy saves {med['dense'] - med['proxy']:.2f} ms a step, the streaming pass "
+        f"{med['dense'] - med['stream']:.2f} ms (negative: it costs)")
+    del runs, batches
+    torch.cuda.empty_cache()
+    # the selection's profiler ranges are entered on every forward, with or
+    # without a profiler: their host cost
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with record_function("select.cost"):
+            pass
+    range_us = 1e6 * (time.perf_counter() - t0) / n
+    log(f"[select] one record_function range with no profiler on: {range_us:.3f} us of host "
+        f"time ({n} in a row, the mean); a step's forward enters 1 (dense, streaming) or "
+        f"3 (proxy): {3e-3 * range_us / med['proxy']:.5%} of the proxy's median step")
+
+    # (c) the held steps on a table cut by whole blocks
+    t0 = time.time()
+    p = SELECT_MODES["proxy"]
+    chk_batch, chk_init, n_rows = block_cut_check(train_cache, dev, p["select_proxy_block"])
+    log(f"[select] the held check runs the flagship check's {CHECK_ROWS}-row batch and "
+        f"parameters with the table cut to the {n_rows // p['select_proxy_block']} whole blocks "
+        f"({n_rows} rows) it reads ({time.time() - t0:.1f} s)")
+    for mode, amp in (("proxy", "none"), ("proxy", "bf16"), ("stream", "none")):
+        t0 = time.time()
+        dd = flagship_config_dict()
+        dd["sequence"].update(SELECT_MODES[mode])
+        dd["model"]["seq_vocab"] = n_rows
+        # the bf16 proxy's ids shared with the CPU are reported, not held:
+        # two cuts on bf16 scores (stage 1's of small block means among
+        # them) part more ids than the dense pass's one, below the dense
+        # band of 0.999 (ROADMAP queue 3); every other band is held as is
+        bands = dict(CHECK_BANDS[amp], select=None) if (mode, amp) == ("proxy", "bf16") else None
+        train_reference_check(dd, train_cache, dev, amp, tag=f"select {mode}", held_only=True,
+                              bands=bands, init=chk_init, batch=chk_batch)
+        log(f"[select {mode}] the held amp={amp} check took {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    del chk_init
+    torch.cuda.empty_cache()
+
+    # (d) one fold of train_main: proxy, device metrics, isotonic, native gather
+    t0 = time.time()
+    d = flagship_config_dict()
+    d["sequence"].update(p)
+    d["exp_name"] = "chip_select"
+    d["cv"]["n_splits"] = 1
+    d["train"]["epochs"] = 1
+    d["eval"]["device_metrics"] = True
+    d["calibration"].update(enabled=True, method="temperature+isotonic")
+    d["logging"]["log_dir"] = os.path.join(tmp, "runs")
+    d["data"]["manifest_train"] = write_synth_cache_for(
+        Config.from_dict(copy.deepcopy(d)), os.path.join(tmp, "cache", "select_train"),
+        SELECT_FOLD_ROWS, num_dim=N_NUM, seed=17)
+    d["data"]["manifest_test"] = test_man
+    cfg = Config.from_dict(copy.deepcopy(d))
+    gather_ms = gather_times(ShardCache(cfg.data.manifest_train), B)
+    log(f"[select] host ms to gather a batch of {B} random rows of the fold's cache (page cache "
+        "warm: the cache was just written), median of 5: cache.gather " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in gather_ms.items()))
+    native.reset_gather_counts()
+    reset_launch_counts()
+    t1 = time.time()
+    exp = trainer.train_main(cfg, device=dev)
+    fold_wall = time.time() - t1
+    gathers = native.gather_counts()["gather_rows_multi"]
+    log(f"[select] train_main (one fold, one epoch, {SELECT_FOLD_ROWS} rows; cache written in "
+        f"{t1 - t0:.1f} s) in {fold_wall:.2f} s; the native gather (library "
+        f"{native.library_path().name}) copied {gathers} batches' rows; launches "
+        f"{launch_counts()}")
+    if gathers == 0:
+        raise AssertionError("the fold's batches did not go through the native gather")
+    with open(os.path.join(exp, "train_log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    for r in rows:
+        log(f"[select] train_log.csv: " + ", ".join(f"{k}={v}" for k, v in r.items()))
+    val = next(r for r in rows if r["split"] == "val")
+
+    # (e) the OOF replay, then the fold served with the OOF calibrator
+    cfg_path = os.path.join(tmp, "chip_select.json")
+    with open(cfg_path, "w") as f:
+        json.dump(d, f)
+    t0 = time.time()
+    out = run_calibration.main(["--cfg", cfg_path, "--method", "temperature+isotonic",
+                                "--device", dev.type])
+    with open(os.path.join(out, "cal_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(out, "oof_metrics.json")) as f:
+        oof = json.load(f)
+    log(f"[select] run_calibration in {time.time() - t0:.1f} s: {oof['rows']} of "
+        f"{oof['total']} rows; before {oof['before']}, after {oof['after']}; method "
+        f"{meta['method']}, T {meta.get('T')}, {len(meta.get('iso_thresholds_x', []))} "
+        "isotonic thresholds")
+    if "iso_thresholds_x" not in meta:
+        raise AssertionError("the OOF calibrator has no isotonic map")
+    z, y, covered, total = run_calibration.compute_oof_from_ckpts(
+        cfg, cfg.data.manifest_train, exp, dev)
+    prob = 1.0 / (1.0 + np.exp(-z))
+    on_card = final_score_device(y, prob, device=dev)
+    on_host = final_score(y, prob)
+    logged = (float(val["AP"]), float(val["WLL"]))
+    log(f"[select] the fold's {covered} validation scores: AP / WLL / Score on the card "
+        f"{on_card}, on the host {on_host}; the loop logged AP {logged[0]} WLL {logged[1]}")
+    if (max(abs(a - b) for a, b in zip(on_card, on_host)) > 1e-5
+            or max(abs(a - b) for a, b in zip(on_card[:2], logged)) > 1e-5):
+        raise AssertionError("the card's AP / WLL are not the host's within 1e-5")
+    os.replace(os.path.join(out, "calibrator.json"),
+               os.path.join(exp, "ckpt_folds_0", "calibrator.json"))
+    cache = ShardCache(test_man)
+    reset_launch_counts()
+    t0 = time.time()
+    path = infer_main(cfg, device=dev)
+    served = launch_counts()
+    n_batches = -(-len(cache) // B)
+    want = {k: n_batches * 3 if k in RMS_ENCODER and not k.endswith("_bwd") else 0
+            for k in served}
+    log(f"[select] infer_main served the fold with the OOF calibrator in {time.time() - t0:.2f} "
+        f"s: {path}; launches {served}, expected {want}")
+    if served != want:
+        raise AssertionError(f"serving launches {served} != {want}")
+    probs = check_submission(path, cache)
+    log(f"[select] submission: {len(probs)} rows, probabilities in [{probs.min():.6f}, "
+        f"{probs.max():.6f}], mean {probs.mean():.6f}")
+    log(f"[select] the phase took {time.time() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return proxy_launches
+
+
 REF_STEPS = 3  # timed steps of the reference-tables phase's modes, after the checked first
 SYNTH_ROWS = 20_000  # synth_small's synthetic train rows (its fold: 4/5 of them)
 SYNTH_TEST_ROWS = 5_000
@@ -3042,9 +3443,12 @@ def train_reference_check(d, cache, dev, amp, tag="check", held_only=False, band
             got[f"{pair} {k}"] = found[pair][k]
             if not found[pair][k] <= band:
                 failed.append(f"{pair} {k}")
+    def band(k):
+        return "reported, not held" if bands[k] is None else f"band {bands[k]}"
+
     log(f"[{tag}] one amp={amp} train step on {CHECK_ROWS} rows: selected ids shared "
-        f"{got['select']:.4%} (band {bands['select']}), rows with the same ordered selection "
-        f"{got['same_order']:.4%} (band {bands['same_order']})"
+        f"{got['select']:.4%} ({band('select')}), rows with the same ordered selection "
+        f"{got['same_order']:.4%} ({band('same_order')})"
         + (f", of them with the same ReLU signs {got['same_relu']:.4%} (band "
            f"{bands['same_relu']})" if bands["same_relu"] is not None else "") + "; held: "
         + "; ".join(f"{pair} " + ", ".join(f"{k} {found[pair][k]:.3g} (band {b:.4g})"
@@ -3216,6 +3620,9 @@ def main() -> int:
         stream_launches = stream_phase(train_cache, dev)
         stream_wall = time.time() - t0
         t0 = time.time()
+        select_launches = select_phase(tmp, train_cache, man, dev)
+        select_wall = time.time() - t0
+        t0 = time.time()
         ref_launches = reference_tables_phase(tmp, train_cache, dev)
         ref_wall = time.time() - t0
         del train_cache
@@ -3232,7 +3639,8 @@ def main() -> int:
 
     for name, r in kernels.items():
         # launches_reference_tables: the reference-tables phase's counted
-        # runs summed (each held to its own expected counts there).
+        # runs summed (each held to its own expected counts there);
+        # launches_select: the select phase's proxy steps (3 layers a step).
         # Each kernel's launches on the path that is its own: the RMSNorm
         # encoder kernels' in the training phase, fused_ffn's in the
         # LayerNorm phase, fused_mha's in its module check (no config serves
@@ -3259,9 +3667,11 @@ def main() -> int:
         r["launches_k120"], r["launches_k120_serving"] = k120_launches[name], k120_served[name]
         r["launches_k148"] = k148_launches[name]
         r["launches_reference_tables"] = ref_launches[name]
+        r["launches_select"] = select_launches[name]
     total = time.time() - T_START
     log(f"[time] the whole script {total:.1f} s, the fold phase {fold_wall:.1f} s, the "
         f"LayerNorm phase {layer_wall:.1f} s, the streaming phase {stream_wall:.1f} s, the "
+        f"select phase {select_wall:.1f} s, the "
         f"reference-tables phase {ref_wall:.1f} s, the "
         f"K = 120 phase {k120_wall:.1f} s, the K = 148 phase {k148_wall:.1f} s, the scatter "
         f"probe {probe_wall:.1f} s and the dropout check {dump_wall:.1f} s of it")

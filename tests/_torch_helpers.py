@@ -147,14 +147,6 @@ def make_batch(d: dict, B: int = 8, seed: int = 0) -> dict:
     }
 
 
-# initialised variables by config without its kernel switches, for the
-# test process: the kernels and their plain paths hold the same
-# parameters (same names, shapes and initialisers), so a config that
-# differs from one already initialised only in those switches reuses its
-# variables (the same values a fresh init would give) instead of paying
-# the init's compile again
-_KERNEL_SWITCHES = ("use_pallas_attention", "use_pallas_ffn")
-_INIT_CACHE: dict = {}
 # XLA's CPU compiler options for the JAX programs the tests only run once
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
@@ -169,40 +161,23 @@ def compiled(jitted, *args):
 
 def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
     """The flax CTRModel the JAX package builds for ``d`` (fused-block
-    kernels on) and its initialised variables.  The parameters do not
-    depend on the kernel switches: they are initialised once a config with
-    the switches off, on XLA's attention and FFN (whose init compiles
-    several times faster than interpret-mode Pallas), checked to fit
-    ``d``'s model leaf for leaf, and returned as host arrays."""
-    import json
+    kernels on) and variables that fit it: the port's seeded parameters
+    for ``d`` (``models.init_params``) in the flax tree, held against the
+    flax init traced on ``batch`` (``flax_variables_from_port``).  No
+    test pays the flax init's compile.  Host arrays."""
+    from tossctr_tpu.config import Config as JConfig
+    from tossctr_tpu.train.trainer import build_model as jax_build_model
+    from tossctr_tpu_torch.config import Config
+    from tossctr_tpu_torch.models import build_model, init_params
 
-    import jax
+    model = jax_build_model(JConfig.from_dict(copy.deepcopy(d)), dims_for(d))
+    port = init_params(build_model(Config.from_dict(copy.deepcopy(d)), dims_for(d), device="cpu"),
+                       seed)
+    return model, flax_variables_from_port(port, model, batch)
 
-    from tossctr_tpu.config import Config
-    from tossctr_tpu.train.trainer import build_model
 
-    model = build_model(Config.from_dict(copy.deepcopy(d)), dims_for(d))
-    plain_d = copy.deepcopy(d)
-    plain_d["model"].update({k: False for k in _KERNEL_SWITCHES})
-    key = (json.dumps(plain_d, sort_keys=True), seed,
-           tuple((k, np.shape(v), str(np.asarray(v).dtype)) for k, v in sorted(batch.items())))
-    if key not in _INIT_CACHE:
-        plain = build_model(Config.from_dict(plain_d), dims_for(d))
-        # the program of ``jitted_init`` (tossctr_tpu/train/trainer.py),
-        # which the JAX package uses for its parameters: keep the two
-        # alike.  Compiled without LLVM's optimisations: it only draws the
-        # parameters, and compiles in half the time
-        init = jax.jit(lambda k, b: plain.init(k, b, deterministic=True))
-        args = (jax.random.PRNGKey(seed), batch)
-        _INIT_CACHE[key] = {"params": compiled(init, *args)(*args)["params"]}
-    variables = _INIT_CACHE[key]
-    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(seed), batch,
-                                               deterministic=True))
-    assert (jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), {"params": shapes["params"]})
-            == jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), variables)), \
-        "the variables do not fit the model"
-    # a copy: a JAX train step donates its state's buffers
-    return model, jax.tree_util.tree_map(np.array, variables)
+# the traced parameter shapes of a flax model on a batch's shapes, by model
+_SHAPES_CACHE: dict = {}
 
 
 def flax_variables_from_port(port, jax_model, batch) -> dict:
@@ -215,8 +190,12 @@ def flax_variables_from_port(port, jax_model, batch) -> dict:
     the flax init's compile."""
     import jax
 
-    shapes = jax.eval_shape(lambda: jax_model.init(jax.random.PRNGKey(0), batch,
-                                                   deterministic=True))["params"]
+    key = (id(jax_model), tuple((k, np.shape(v), str(np.asarray(v).dtype))
+                                for k, v in sorted(batch.items())))
+    if key not in _SHAPES_CACHE:  # the model held too, so its id is not reused
+        _SHAPES_CACHE[key] = (jax_model, jax.eval_shape(
+            lambda: jax_model.init(jax.random.PRNGKey(0), batch, deterministic=True))["params"])
+    shapes = _SHAPES_CACHE[key][1]
     sd = {k: v.detach() for k, v in port.state_dict().items()}
     used = set()
 

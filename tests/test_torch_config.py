@@ -84,7 +84,8 @@ def test_config_and_spec_match_jax():
         assert groups(got) == groups(want)
         assert got.block_slices == want.block_slices
         for name in ("emb_dim", "f_embed", "seq_vocab", "top_k", "recency_tau", "query_mode",
-                     "tfm_n_layers", "tfm_n_heads", "tfm_ffn_hidden", "table_dtype"):
+                     "tfm_n_layers", "tfm_n_heads", "tfm_ffn_hidden", "table_dtype",
+                     "select_chunk", "select_proxy_block", "select_proxy_candidates"):
             assert getattr(got, name) == getattr(want, name), name
         assert {k: want.qnn[k] for k in got.qnn} == got.qnn
 

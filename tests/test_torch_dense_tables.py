@@ -12,8 +12,9 @@ adafactor | sgd``) against the JAX package's, and its Adafactor against
   ``make_train_step`` composes it (its model's loss and gradients,
   ``make_optimizer``'s transform with optax's clip, ``apply_updates``,
   ``update_ema``, from ``make_train_state``'s state), the model's loss and
-  gradient program compiled once a layout and shared by the three
-  optimizers.  ``adamw`` is one
+  gradient program and the EMA's compiled once a layout and shared by the
+  three optimizers (their EMA settings and masks are the same), the
+  optimizer's once a config.  ``adamw`` is one
   AdamW over every parameter; ``adafactor`` / ``sgd`` take the parameters
   whose flax path holds a table marker (the sequence tables and the
   categorical ``table_{d}``) and AdamW the rest.  Held after each step:
@@ -110,7 +111,7 @@ def test_dense_table_steps_match_jax(tmp_path):
                         + aux_w * jloss.bce_wll_style(aux, b["y"], valid=b["valid"]))
 
             programs[fused] = (jmodel, jax.jit(jax.value_and_grad(loss_fn)), {})
-        jmodel, loss_and_grads, grads_fn = programs[fused]
+        jmodel, loss_and_grads, shared = programs[fused]
         b0 = {k: v for k, v in batches(d)[0].items() if k not in ("y", "valid")}
         variables = jax.tree_util.tree_map(jnp.asarray,
                                            flax_variables_from_port(model, jmodel, b0))
@@ -121,24 +122,33 @@ def test_dense_table_steps_match_jax(tmp_path):
         @jax.jit
         def apply(grads, state):
             updates, opt_state = jtx.update(grads, state.opt_state, state.params)
-            params = optax.apply_updates(state.params, updates)
-            step = state.step + 1
-            ema = jema.update_ema(state.ema, params, step, base_decay=float(e.decay),
-                                  warmup_steps=int(e.warmup_steps),
-                                  warmup_type=str(e.warmup_type),
-                                  update_after_step=int(e.update_after_step),
-                                  update_interval=int(e.update_interval), mask=jmask)
-            return jtrainer.TrainState(params, opt_state, ema, step, None)
+            return optax.apply_updates(state.params, updates), opt_state
+
+        @jax.jit
+        def ema_update(ema, params, step):
+            return jema.update_ema(ema, params, step, base_decay=float(e.decay),
+                                   warmup_steps=int(e.warmup_steps),
+                                   warmup_type=str(e.warmup_type),
+                                   update_after_step=int(e.update_after_step),
+                                   update_interval=int(e.update_interval), mask=jmask)
 
         fns = {}
 
-        def jstep(state, b):  # both compiled without LLVM's optimisations, the first once
-            if not grads_fn:  # a layout
-                grads_fn["fn"] = compiled(loss_and_grads, state.params, b)
-            loss, grads = grads_fn["fn"](state.params, b)
+        def jstep(state, b):
+            # compiled without LLVM's optimisations: the loss and gradients and
+            # the EMA once a layout (the three optimizers share them: the same
+            # model, the same EMA), the optimizer once a config
+            if "grads" not in shared:
+                shared["grads"] = compiled(loss_and_grads, state.params, b)
+            loss, grads = shared["grads"](state.params, b)
             if not fns:
                 fns["apply"] = compiled(apply, grads, state)
-            return fns["apply"](grads, state), loss
+            params, opt_state = fns["apply"](grads, state)
+            step = state.step + 1
+            if "ema" not in shared:
+                shared["ema"] = compiled(ema_update, state.ema, params, step)
+            ema = shared["ema"](state.ema, params, step)
+            return jtrainer.TrainState(params, opt_state, ema, step, None), loss
 
         return jstate, jstep
 

@@ -204,8 +204,7 @@ def test_fold_loop_end_to_end(tmp_path, monkeypatch):
             assert torch.equal(s, got.ema.shadow[k]), k
 
     def unported_raise():
-        for over in ({"eval": {"device_metrics": True}}, {"mesh": {"model": 2}},
-                     {"debug_nans": True}):
+        for over in ({"mesh": {"data": 2}}, {"mesh": {"model": 2}}, {"debug_nans": True}):
             c = Config.from_dict({**copy.deepcopy(d), **over})
             with pytest.raises(NotImplementedError):
                 trainer.train_main(c, device="cpu")

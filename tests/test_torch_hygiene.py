@@ -3,11 +3,16 @@ fresh interpreter: importing every module of ``tossctr_tpu_torch`` (the
 CLIs' ``__main__`` modules, the fold loop and the FM-cross ops among
 them) pulls in neither JAX, flax, msgpack, PyYAML, sklearn, pyarrow,
 polars nor the JAX package (the card's machine has none of them); no source of
-the port (or ``chip_smoke.py``) imports them; and an entry point called
-without ``device`` on a machine without CUDA raises instead of running
-on the CPU.  One test item (see ``_torch_helpers``)."""
+the port (or ``chip_smoke.py``) imports them, and none of its sources (the
+native gather's C++ among them) names a path into the JAX package's
+``native/``, whose library the port never loads; no shared library lies
+in the package's tree (the native gather builds into ``build/native/``);
+and an entry point called without ``device`` on a machine without CUDA
+raises instead of running on the CPU.  One test item (see
+``_torch_helpers``)."""
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -49,8 +54,8 @@ def test_port_import_and_device_hygiene(tmp_path):
     def importing_every_module_loads_none_of_them():
         mods = _modules()
         for m in ("ops.fused_attention", "ops.fused_ffn", "ops.fm_cross", "train.trainer",
-                  "train.cv_split",
-                  "train.__main__", "infer.__main__"):
+                  "train.cv_split", "train.sharded_ckpt", "eval.isotonic", "native.build",
+                  "tools.run_calibration", "train.__main__", "infer.__main__"):
             assert f"tossctr_tpu_torch.{m}" in mods, m
         r = _run(f"""
             import importlib, sys
@@ -67,16 +72,38 @@ def test_port_import_and_device_hygiene(tmp_path):
             for name in _imported_names(path):
                 assert name.split(".")[0] not in ("jax", "flax", "tossctr_tpu"), (path, name)
 
+    def no_path_into_the_jax_native_library():
+        # string constants of the code (docstrings may cite the JAX files)
+        for path in PKG.rglob("*.py"):
+            tree = ast.parse(path.read_text(), filename=str(path))
+            docs = {id(n.body[0].value) for n in ast.walk(tree)
+                    if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                    and n.body and isinstance(n.body[0], ast.Expr)}
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                        and id(node) not in docs):
+                    v = node.value
+                    assert v != "tossctr_tpu" and "tossctr_tpu/" not in v \
+                        and "tossctr_tpu.native" not in v, (path, v)
+        cpp = PKG / "native" / "fastgather.cpp"
+        includes = [ln for ln in cpp.read_text().splitlines() if ln.startswith("#include")]
+        assert includes and all("<" in ln and ".." not in ln for ln in includes), includes
+        assert not list(PKG.rglob("*.so")), list(PKG.rglob("*.so"))
+
     def entry_points_without_device_raise():
+        cfg_json = tmp_path / "cfg.json"
+        cfg_json.write_text(json.dumps({"logging": {"log_dir": str(tmp_path)}}))
         r = _run(f"""
             from tossctr_tpu_torch.config import Config
             from tossctr_tpu_torch.infer import infer_main
             from tossctr_tpu_torch.models import build_model
+            from tossctr_tpu_torch.tools.run_calibration import main as run_calibration
             from tossctr_tpu_torch.train.trainer import train_main
             cfg = Config.from_dict({{"logging": {{"log_dir": {str(tmp_path)!r}}}}})
+            path = {str(cfg_json)!r}
             dims = {{"X_num": 2, "X_mask": 2, "X_cat": 0, "seq_len": 8}}
             for call in (lambda: infer_main(cfg), lambda: build_model(cfg, dims),
-                         lambda: train_main(cfg)):
+                         lambda: train_main(cfg), lambda: run_calibration(["--cfg", path])):
                 try:
                     call()
                 except RuntimeError as e:
@@ -85,11 +112,13 @@ def test_port_import_and_device_hygiene(tmp_path):
                     print("RAN")
         """)
         assert r.returncode == 0, r.stderr
-        assert r.stdout.split("\n")[:3] == ["RAISED True"] * 3, r.stdout
+        assert r.stdout.split("\n")[:4] == ["RAISED True"] * 4, r.stdout
 
     checks = Checks()
     checks.run("importing every module", importing_every_module_loads_none_of_them)
     checks.run("no source imports jax, flax or tossctr_tpu", no_source_imports_the_jax_package)
+    checks.run("no path into the JAX package's native library",
+               no_path_into_the_jax_native_library)
     if not torch.cuda.is_available():  # the rule is about machines without CUDA
         checks.run("entry points without device raise", entry_points_without_device_raise)
     checks.done()

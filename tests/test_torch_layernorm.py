@@ -25,8 +25,9 @@
   loads as ``norm1`` / ``norm2`` (``qnn/LayerNorm_0`` keeps its name), the
   JAX package's own migration agreeing; the port's format saves and loads
   the LayerNorm keys.
-* ``build_model`` accepts the four settings it refused before (and the
-  split tables) and still refuses streaming and proxy selection.
+* ``build_model`` accepts the four settings it refused before, the split
+  tables and streaming and proxy selection; ``_check_ported`` still
+  refuses more than one device (``mesh.model: 2``).
 
 One test item (see ``_torch_helpers``).
 """
@@ -292,8 +293,10 @@ def test_layernorm_paths_match_jax(tmp_path):
                                    "select_proxy_candidates": 8}},
                      {"sequence": {"select_chunk": 8}}):
             d = H.tiny_cfg_dict("none", **over)
-            with pytest.raises(NotImplementedError):
-                build_model(Config.from_dict(d), H.dims_for(d), device="cpu")
+            build_model(Config.from_dict(d), H.dims_for(d), device="cpu")
+        d = H.tiny_cfg_dict("none", mesh={"model": 2})
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+            trainer._check_ported(Config.from_dict(d))
 
     checks = H.Checks()
     with H.torch_threads():

@@ -2,9 +2,9 @@
 
 The flax model is the JAX package's own ``build_model`` with the fused
 attention and block-tail kernels on (interpret mode on CPU) and fused
-sequence tables; its initialised parameters go through
-``convert.flax_to_state_dict`` into the port, and both run the same
-numpy batch with dropout off.
+sequence tables.  Both hold the port's seeded parameters (the flax tree
+of them goes through ``convert.flax_to_state_dict`` back into the port),
+and both run the same numpy batch with dropout off.
 
 * fp32: logits, probabilities and the aux logit agree to 1e-4.
 * bf16 (``amp: bf16``, bf16 table): probabilities agree within 0.02.
@@ -14,14 +14,15 @@ numpy batch with dropout off.
   band bounds the end result, not each intermediate.
 
 The unfused encoder (``use_pallas_attention`` / ``use_pallas_ffn``
-false) is held in fp32 too.  Configs that ask for a path the port has
-not ported (streaming and proxy selection) raise; the split tables have
-a file of their own (``test_torch_split_tables.py``).  One test item
-(see ``_torch_helpers``).
+false) is held in fp32 too.  Configs with streaming or proxy selection
+build a model that carries the mode into its DARE selection and serves
+finite probabilities (held against the JAX package in
+``test_torch_select_modes.py``); the split tables have a file of their
+own (``test_torch_split_tables.py``).  One test item (see
+``_torch_helpers``).
 """
 
 import numpy as np
-import pytest
 
 import _torch_helpers as H
 
@@ -59,10 +60,17 @@ def test_model_matches_flax():
         worst = _compare(d, seeds=(1, 2, 3))
         assert worst["p"] < 0.02, worst
 
-    def unported_path_raises(over):
+    def selection_mode_builds(over, want):
+        import torch
+
+        from tossctr_tpu_torch.models import init_params
+
         d = H.tiny_cfg_dict("none", **over)
-        with pytest.raises(NotImplementedError):
-            build_model(Config.from_dict(d), H.dims_for(d), device="cpu")
+        model = init_params(build_model(Config.from_dict(d), H.dims_for(d), device="cpu"), 0)
+        assert (model.dare.select_chunk, model.dare.select_proxy) == want
+        with torch.inference_mode():
+            _, p, _ = model(H.torch_batch(H.make_batch(d, B=8, seed=1)))
+        assert p.shape == (8,) and bool(torch.isfinite(p).all())
 
     checks = H.Checks()
     with H.torch_threads():
@@ -80,10 +88,11 @@ def test_model_matches_flax():
         ))
         checks.run("unfused encoder fp32", fp32, H.tiny_cfg_dict(
             "none", model={"use_pallas_attention": False, "use_pallas_ffn": False}))
-        for over in (
-            {"sequence": {"select_chunk": 8}},
-            {"sequence": {"select_proxy": True, "select_proxy_block": 50,
-                          "select_proxy_candidates": 8}},
+        for over, want in (
+            ({"sequence": {"select_chunk": 8}}, (8, None)),
+            ({"sequence": {"select_proxy": True, "select_proxy_block": 50,
+                           "select_proxy_candidates": 8}},
+             (None, {"block": 50, "candidates": 8})),
         ):
-            checks.run(f"unported {over} raises", unported_path_raises, over)
+            checks.run(f"selection mode {over} builds", selection_mode_builds, over, want)
     checks.done()

@@ -1,9 +1,9 @@
 """The port's serving slice against the JAX package's, end to end on CPU.
 
 A cache written by the port's ``data/synth.py`` (three shards, a partial
-last batch) and two fold checkpoints written by the JAX package
-(``jitted_init``, then ``save_fold_checkpoint`` with an EMA tree and a
-temperature ``Calibrator``; fold 1's msgpack written with a small
+last batch) and two fold checkpoints written by the JAX package (the
+port's seeded parameters in the flax tree, then ``save_fold_checkpoint``
+with an EMA tree and a temperature ``Calibrator``; fold 1's msgpack written with a small
 ``MAX_CHUNK_SIZE`` so every large leaf takes flax's chunked form) are
 served by both packages' ``predict_ensemble``.  Ids must be identical;
 the ensembled probabilities agree to 1e-5 (fp32: the per-fold logits
@@ -46,6 +46,8 @@ def _jax_side(root):
     from tossctr_tpu.train.trainer import build_model
     from tossctr_tpu_torch.config import Config
     from tossctr_tpu_torch.data.synth import write_synth_cache_for
+    from tossctr_tpu_torch.models import build_model as port_build_model
+    from tossctr_tpu_torch.models import init_params
 
     d = H.tiny_cfg_dict("none", exp_name="tiny_serve", logging={"log_dir": str(root / "runs")})
     man = write_synth_cache_for(Config.from_dict(copy.deepcopy(d)), str(root / "cache"),
@@ -55,16 +57,13 @@ def _jax_side(root):
     jcache = JaxShardCache(man)
     init_batch = jcache.gather(np.arange(8), train=False)
     init_batch.pop("ids")
-    # jitted_init, compiled once, on XLA's attention and FFN: the
-    # parameters do not depend on the kernel switches
-    # (``_torch_helpers.jax_model_and_variables``)
-    plain = copy.deepcopy(d)
-    plain["model"].update(use_pallas_attention=False, use_pallas_ffn=False)
-    plain_model = build_model(JaxConfig.from_dict(plain), jcache.dims)
-    init = jax.jit(lambda k, b: plain_model.init(k, b, deterministic=True))
+    # the port's seeded parameters in the flax tree: no flax init compiled
+    # (``_torch_helpers.flax_variables_from_port``)
+    jmodel = build_model(jcfg, jcache.dims)
+    port_cfg = Config.from_dict(copy.deepcopy(d))
     for fold in (0, 1):
-        v = init(jax.random.PRNGKey(fold), init_batch)
-        params = {"params": v["params"]}
+        port = init_params(port_build_model(port_cfg, jcache.dims, device="cpu"), fold)
+        params = H.flax_variables_from_port(port, jmodel, init_batch)
         ema = jax.tree_util.tree_map(lambda a: (a * 1.05).astype(a.dtype), params)
         cal = Calibrator(method="temperature")
         cal.temp_scaler = TemperatureScaler(T=1.3 + 0.5 * fold)
@@ -205,8 +204,9 @@ def test_serving_slice_matches_jax(tmp_path):
         z = np.linspace(-4, 4, 9)
         np.testing.assert_allclose(load(cal).predict_proba(z), cal.predict_proba(z), rtol=1e-12)
         iso = JaxCalibrator(method="isotonic").fit(np.linspace(-3, 3, 40), np.arange(40) % 2)
-        with pytest.raises(NotImplementedError):
-            load(iso)
+        assert iso.iso is not None  # sklearn's IsotonicRegression, now the port's
+        np.testing.assert_allclose(load(iso).predict_proba(z), iso.predict_proba(z), rtol=0,
+                                   atol=1e-12)
         with pytest.raises(pickle.UnpicklingError):
             load(io.StringIO("x"))
 

@@ -19,8 +19,9 @@ in the port against the JAX package, on the same converted parameters.
   step as its ``make_train_step`` composes it with split tables (the
   loss and gradients of the dense parameters and the rows' perturbations,
   the clip over both, ``make_optimizer``'s AdamW, ``sparse_embed``'s and
-  ``pallas_scatter``'s table updates), the model's program compiled once
-  for the four modes.  Held: the loss within 1e-5 relative, both tables
+  ``pallas_scatter``'s table updates), the model's program and the
+  clip-and-AdamW program over the dense parameters each compiled once for
+  the four modes, the table update's program once a mode.  Held: the loss within 1e-5 relative, both tables
   within 1e-5 relative (1e-6 absolute), each table's (V,) accumulator
   within 1e-5 relative, the dense parameters within 1e-5 relative where
   the gradient exceeds 1e-3 of its tensor's largest magnitude and
@@ -175,23 +176,37 @@ def test_split_tables_match_jax(tmp_path):
     def batch_j():
         return jax.tree_util.tree_map(jnp.asarray, batch)
 
-    def jax_update(jcfg, jtx, jsched, mode):
-        """The JAX sparse step after its gradients (``make_train_step``'s
-        sparse branch with split tables): the clip over the dense and row
-        gradients, AdamW, then the tables' update of ``mode``."""
-        t = jcfg.train
-        clip, wd, pad = float(t.grad_clip_norm), float(t.weight_decay), jcfg.sequence.pad_id
+    def jax_dense_update(jcfg, jtx):
+        """The JAX sparse step's update of everything but the tables
+        (``make_train_step``'s sparse branch): the clip over the dense and
+        row gradients, then AdamW; -> (the new dense parameters, AdamW's
+        state, the clipped row gradients).  The same in every table mode,
+        so one program serves the four (the modes' configs differ only in
+        the table update)."""
+        clip = float(jcfg.train.grad_clip_norm)
 
         @jax.jit
-        def update(state, sel_ids, fwd, g_rest, g_perts):
-            rest, tables = jtrainer.extract_tables(state.params)
+        def update(params, opt_state, g_rest, g_perts):
+            rest, _ = jtrainer.extract_tables(params)
             gn = optax.global_norm((g_rest, g_perts))
             scale = jnp.where(gn > clip, clip / (gn + 1e-6), 1.0)
             g_rest = jax.tree_util.tree_map(lambda g: g * scale, g_rest)
             g_rows = {"emb_att": g_perts["dare"]["att_rows"] * scale,
                       "emb_rep": g_perts["dare"]["rep_rows"] * scale}
-            updates, opt_state = jtx.update(g_rest, state.opt_state, rest)
-            rest = optax.apply_updates(rest, updates)
+            updates, opt_state = jtx.update(g_rest, opt_state, rest)
+            return optax.apply_updates(rest, updates), opt_state, g_rows
+
+        return update
+
+    def jax_table_update(jcfg, jsched, mode):
+        """Then the tables' update of ``mode``, as the sparse branch
+        dispatches it."""
+        t = jcfg.train
+        wd, pad = float(t.weight_decay), jcfg.sequence.pad_id
+
+        @jax.jit
+        def update(state, rest, opt_state, sel_ids, fwd, g_rows):
+            _, tables = jtrainer.extract_tables(state.params)
             lr_t = jsched(state.step)
             table_opt, new = dict(state.table_opt or {}), {}
             if mode == "sweep":
@@ -247,8 +262,12 @@ def test_split_tables_match_jax(tmp_path):
         selected = set(taps["sel_ids"].reshape(-1).tolist())
 
         jloss, (sel_ids, fwd), (g_rest, g_perts) = grads(jstate.params, batch_j())
-        args = (jstate, sel_ids, fwd, g_rest, g_perts)
-        jstate = compiled(jax_update(jcfg, jtx, jsched, mode), *args)(*args)
+        args = (jstate.params, jstate.opt_state, g_rest, g_perts)
+        if "dense" not in programs:  # compiled once, for the four modes
+            programs["dense"] = compiled(jax_dense_update(jcfg, jtx), *args)
+        rest, opt_state, g_rows = programs["dense"](*args)
+        args = (jstate, rest, opt_state, sel_ids, fwd, g_rows)
+        jstate = compiled(jax_table_update(jcfg, jsched, mode), *args)(*args)
         state, loss = step(state, torch_batch(batch))
         assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss)), (loss, jloss)
         jparams = flax_to_state_dict(jax.device_get(jstate.params))

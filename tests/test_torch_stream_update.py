@@ -35,7 +35,15 @@ import copy
 import numpy as np
 import pytest
 
-from _torch_helpers import Checks, dims_for, make_batch, tiny_cfg_dict, torch_batch, torch_threads
+from _torch_helpers import (
+    Checks,
+    dims_for,
+    jax_model_and_variables,
+    make_batch,
+    tiny_cfg_dict,
+    torch_batch,
+    torch_threads,
+)
 
 LR = 1e-2
 V, W, N, PAD = 300, 32, 160, 0
@@ -95,7 +103,10 @@ def test_streaming_updates_match_jax(tmp_path):
     def tables(table, dtype):
         jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
                                                                             torch.float32)
-        return jnp.asarray(table, jdt), torch.from_numpy(table).to(tdt)
+        # a copy for the port: on the CPU jnp.asarray aliases the numpy array,
+        # and the port updates its table in place while the JAX update may
+        # still be reading its input (dispatch is asynchronous)
+        return jnp.asarray(table, jdt), torch.from_numpy(table.copy()).to(tdt)
 
     def hold_rows(name, dtype, got, want):
         got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
@@ -142,8 +153,7 @@ def test_streaming_updates_match_jax(tmp_path):
     batch = make_batch(base, B=8, seed=21)
     batch["y"] = (np.arange(8) % 3 == 0).astype(np.float32)
     init = {k: v for k, v in batch.items() if k != "y"}
-    jmodel0 = jtrainer.build_model(JConfig.from_dict(copy.deepcopy(base)), dims)
-    variables = jtrainer.jitted_init(jmodel0, jax.random.PRNGKey(0), init)
+    jmodel0, variables = jax_model_and_variables(base, init)
 
     def one_step(mode):
         d = step_cfg_dict(**MODES[mode])

@@ -27,6 +27,7 @@ import numpy as np
 
 from _torch_helpers import (
     Checks,
+    compiled,
     dims_for,
     jax_model_and_variables,
     make_batch,
@@ -85,6 +86,15 @@ def test_train_step_matches_jax():
     jstep = jtrainer.make_train_step(jmodel, jtx, jcfg, jax.random.PRNGKey(1), ema_mask=jmask,
                                      schedule=jsched)
     jeval = jtrainer.make_eval_step(jmodel)
+    programs = {}
+
+    def jax_step(jstate, batch):
+        """``jstep`` compiled once a batch layout (``compiled``; the two
+        batches differ by their ``valid`` mask)."""
+        key = tuple(sorted(batch))
+        if key not in programs:
+            programs[key] = compiled(jstep, jstate, batch)
+        return programs[key](jstate, batch)
 
     @jax.jit
     def jax_loss_and_grads(params, batch):
@@ -190,7 +200,7 @@ def test_train_step_matches_jax():
         table0 = model.dare.emb_tables.detach().clone()
         for i, batch in enumerate(batches):
             checks.run(f"step {i + 1}: loss and gradients", loss_and_grads_match, batch)
-            jstate, jloss = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+            jstate, jloss = jax_step(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
             state, loss = step(state, torch_batch(batch))
             checks.run(f"step {i + 1}: loss", rel_close, "loss", float(loss), float(jloss), 1e-4)
             checks.run(f"after step {i + 1}: state", states_match, i + 1)

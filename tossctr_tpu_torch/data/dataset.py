@@ -4,18 +4,29 @@ Port of ``tossctr_tpu/data/dataset.py``: the same ``manifest.json``
 format (written by ``tossctr_tpu/data/etl.py`` or by this package's
 ``data/synth.py``), the same ``dims``, the same ``gather`` (features
 with labels for training, with ids for serving) and the labels and CV
-groups of the whole cache for the fold split, with NumPy gathers only
-(the native threaded gather of the JAX package waits for a later slice).
+groups of the whole cache for the fold split.  A batch's rows are copied
+by the native threaded gather (``native/``, built at first use; the same
+bytes as NumPy's), as the JAX package does when its library builds;
+``TOSSCTR_NATIVE_GATHER=0`` takes NumPy's fancy indexing instead.  A
+failed build raises.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..native import gather_rows_multi
+
 _KEYS = ["X_num", "X_mask", "X_cat", "seq", "y", "groups", "ids"]
+
+
+def use_native_gather() -> bool:
+    """The native threaded gather unless TOSSCTR_NATIVE_GATHER=0."""
+    return os.environ.get("TOSSCTR_NATIVE_GATHER", "1") != "0"
 
 
 class _Shard:
@@ -94,7 +105,7 @@ class ShardCache:
             inv = np.empty_like(order)
             inv[order] = np.arange(order.size)
             li_sorted = li[order]
-            raw = {k: arrs[k][li_sorted] for k in keys}
+            raw = _gather_raw(arrs, keys, li_sorted)
             batch["X_num"][sel] = raw["X_num"].astype(np.float32, copy=False)[inv]
             batch["X_mask"][sel] = raw["X_mask"].astype(np.float32)[inv]
             batch["X_cat"][sel] = raw["X_cat"][inv]
@@ -112,6 +123,13 @@ class ShardCache:
     def groups(self) -> np.ndarray:
         """Every row's CV group id, in cache order."""
         return np.concatenate([np.asarray(s.arrs["groups"]) for s in self.shards])
+
+
+def _gather_raw(arrs, keys, li_sorted) -> Dict[str, np.ndarray]:
+    """The rows ``li_sorted`` of each array ``keys`` of one shard."""
+    if use_native_gather():
+        return dict(zip(keys, gather_rows_multi([arrs[k] for k in keys], li_sorted)))
+    return {k: arrs[k][li_sorted] for k in keys}
 
 
 def load_labels_groups_for_split(manifest_path: str):

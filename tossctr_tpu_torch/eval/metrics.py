@@ -1,12 +1,14 @@
 """Competition metrics and fold ensembling.
 
-Port of ``tossctr_tpu/eval/metrics.py``, NumPy only:
+Port of ``tossctr_tpu/eval/metrics.py``.  On the host, in NumPy:
 ``weighted_logloss_50_50``, ``ap_score`` (the JAX package calls
 sklearn's ``average_precision_score``; ``average_precision`` here is the
 same tie-aware step integral: one threshold per distinct score, ties
 counted together), ``final_score``, ``ensemble_probs`` (every method)
-and ``val_weighted_weights``.  The device-side AP of the JAX package
-(``eval.device_metrics: true``) is not ported.
+and ``val_weighted_weights``.  On a device, in torch (the fold loop's
+``eval.device_metrics: true``): ``average_precision_torch``,
+``weighted_logloss_50_50_torch`` and ``final_score_device``, in fp32
+like the JAX package's, with the host path's sanitation.
 """
 
 from __future__ import annotations
@@ -73,6 +75,65 @@ def final_score(y_true, y_prob, formula: str = "reference"):
     else:
         score = 0.5 * ap + 0.5 * wll
     return ap, wll, score
+
+
+def average_precision_torch(y_true, y_score, device=None):
+    """Tie-aware average precision in fp32 on ``device`` (a 0-d tensor):
+    sklearn's ``average_precision_score``, with precision and recall taken
+    at the last element of each tie run in descending-score order.  One
+    stable sort, cumulative sums and a running max (the recall at the
+    previous kept threshold); 0 when no row is positive.  Scores are
+    sanitised as on the host: NaN -> 0.5, +-inf clipped into [0, 1]."""
+    import torch
+
+    y = torch.as_tensor(y_true, dtype=torch.float32, device=device).ravel()
+    s = torch.as_tensor(y_score, dtype=torch.float32, device=device)
+    s = torch.nan_to_num(s, nan=0.5, posinf=1.0, neginf=0.0).clamp(0.0, 1.0).ravel()
+    n = y.shape[0]
+    order = torch.argsort(-s, stable=True)
+    ys, ss = y[order], s[order]
+    tp = torch.cumsum(ys, 0)
+    total_pos = tp[-1]
+    precision = tp / torch.arange(1, n + 1, dtype=torch.float32, device=y.device)
+    recall = tp / torch.clamp(total_pos, min=1.0)
+    # the last element of each tie run
+    keep = torch.cat([ss[1:] != ss[:-1], torch.ones(1, dtype=torch.bool, device=y.device)])
+    # recall is nondecreasing: the previous kept recall is the running max
+    # of the kept recalls, shifted by one
+    masked = torch.where(keep, recall, torch.zeros_like(recall))
+    prev_kept = torch.cat([torch.zeros(1, device=y.device),
+                           torch.cummax(masked, 0).values[:-1]])
+    ap = torch.where(keep, (recall - prev_kept) * precision, torch.zeros_like(recall)).sum()
+    return torch.where(total_pos > 0, ap, torch.zeros_like(ap))
+
+
+def weighted_logloss_50_50_torch(y_true, y_prob, eps: float = 1e-12, device=None):
+    """The 50:50 WLL in fp32 on ``device`` (a 0-d tensor).  The clip floor
+    is max(eps, 1e-7): the host's 1e-12 does not exist next to 1.0 in
+    fp32.  NaN -> 0.5, +-inf clipped, as on the host."""
+    import torch
+
+    y = torch.as_tensor(y_true, dtype=torch.float32, device=device).ravel()
+    eps32 = max(float(eps), 1e-7)
+    p = torch.as_tensor(y_prob, dtype=torch.float32, device=device)
+    p = torch.nan_to_num(p, nan=0.5, posinf=1.0, neginf=0.0).clamp(eps32, 1.0 - eps32).ravel()
+    pos = y == 1
+    n_pos = torch.clamp(pos.sum(), min=1)
+    n_neg = torch.clamp((~pos).sum(), min=1)
+    zero = torch.zeros_like(p)
+    pos_loss = torch.where(pos, -torch.log(p), zero).sum() / n_pos
+    neg_loss = torch.where(~pos, -torch.log(1.0 - p), zero).sum() / n_neg
+    return 0.5 * (pos_loss + neg_loss)
+
+
+def final_score_device(y_true, y_prob, formula: str = "reference", device=None):
+    """-> (ap, wll, score) as Python floats, the AP and WLL computed on
+    ``device``; ``formula`` as in ``final_score``."""
+    ap = float(average_precision_torch(y_true, y_prob, device=device))
+    wll = float(weighted_logloss_50_50_torch(y_true, y_prob, device=device))
+    if formula == "competition":
+        return ap, wll, 0.5 * ap + 0.5 / (1.0 + wll)
+    return ap, wll, 0.5 * ap + 0.5 * wll
 
 
 def _safe_prob_to_logit(p: np.ndarray, eps: float = 1e-7) -> np.ndarray:

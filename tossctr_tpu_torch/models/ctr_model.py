@@ -76,6 +76,9 @@ class ModelSpec:
     tfm_gating: str
     tfm_add_pos_bias: bool
     qnn_enabled: bool
+    select_chunk: Optional[int] = None
+    select_proxy_block: int = 64
+    select_proxy_candidates: int = 0  # 0 = off
     tfm_norm: str = "rms"
     tfm_mha_dropout: float = 0.0
     tfm_ffn_dropout: float = 0.0
@@ -131,6 +134,9 @@ def build_model_spec(cfg, dims: Dict[str, int]) -> ModelSpec:
         top_k=int(s.top_k),
         recency_tau=float(s.recency_tau),
         pad_id=int(s.pad_id),
+        select_chunk=(int(s.select_chunk) if s.select_chunk else None),
+        select_proxy_block=int(s.select_proxy_block),
+        select_proxy_candidates=int(s.select_proxy_candidates) if s.select_proxy else 0,
         query_mode=s.query_mode,
         query_key=s.query_key,
         transformer_block=bool(s.transformer_block),
@@ -223,6 +229,8 @@ class CTRModel(nn.Module):
             ffn_dropout=sp.tfm_ffn_dropout, norm=sp.tfm_norm,
             use_pallas_attn=use_pallas_attn, use_pallas_ffn=use_pallas_ffn,
             fused_tables=fused_tables, sparse_tables=sparse_tables,
+            select_chunk=sp.select_chunk, select_proxy_block=sp.select_proxy_block,
+            select_proxy_candidates=sp.select_proxy_candidates,
         )
         if sp.qnn_enabled:
             self.qnn = QNNAlpha(sp.n_feat, D, se_batch_stats=se_batch_stats,
@@ -303,13 +311,10 @@ def build_model(cfg, dims: Dict[str, int], device="cuda") -> CTRModel:
     or FFN (the JAX package resolves None to the kernels on a TPU only);
     ``sequence.tfm.norm`` and ``model.qnn_alpha.norm`` pick RMSNorm or
     LayerNorm; ``model.extra.use_pallas_fm`` selects the FM-cross kernels
-    of the QNN-alpha head.  A config that asks for an unported path
-    raises."""
-    m, s = cfg.model, cfg.sequence
-    if s.select_chunk or s.select_proxy:
-        raise NotImplementedError(
-            "not ported to tossctr_tpu_torch yet: sequence.select_chunk / select_proxy "
-            "(streaming / proxy selection, ROADMAP queue 1 item 2)")
+    of the QNN-alpha head; ``sequence.select_chunk`` and
+    ``select_proxy`` the streaming pass and the proxy prefilter of the
+    DARE selection."""
+    m = cfg.model
     with torch.device(resolve_device(device)):
         return CTRModel(build_model_spec(cfg, dims), cfg.compute_dtype,
                         se_batch_stats=bool(m.qnn_alpha.se_batch_stats),

@@ -1,7 +1,8 @@
 """DARE sequence encoder.
 
-Port of ``tossctr_tpu/models/dare.py``: dense top-k selection, ``pad_topk``
-to the 8-row tile, the encoder layers (RMSNorm or LayerNorm, kernel or
+Port of ``tossctr_tpu/models/dare.py``: top-k selection (dense, streaming
+with ``select_chunk`` or the proxy prefilter with ``select_proxy_*``),
+``pad_topk`` to the 8-row tile, the encoder layers (RMSNorm or LayerNorm, kernel or
 plain paths), softmax or relu gating, the dropout on ``u_seq`` and the
 aux head.  The sequence tables come in the JAX package's two layouts: the
 lane-fused (V, 2D) ``emb_tables`` (``model.fused_seq_tables``, the
@@ -39,7 +40,9 @@ class DARE(nn.Module):
                  add_positional_bias: bool = True, table_dtype=torch.float32,
                  dropout: float = 0.0, mha_dropout: float = 0.0, ffn_dropout: float = 0.0,
                  norm: str = "rms", use_pallas_attn: bool = True, use_pallas_ffn: bool = True,
-                 fused_tables: bool = True, sparse_tables: bool = True):
+                 fused_tables: bool = True, sparse_tables: bool = True,
+                 select_chunk: Optional[int] = None, select_proxy_block: int = 64,
+                 select_proxy_candidates: int = 0):
         super().__init__()
         if gating not in ("softmax", "relu"):
             raise ValueError(f"gating must be softmax|relu, got {gating!r}")
@@ -52,6 +55,11 @@ class DARE(nn.Module):
         self.dropout = float(dropout)
         self.n_layers = n_layers if transformer_block else 0
         self.fused_tables = fused_tables
+        self.select_chunk = select_chunk
+        # 0 candidates: no proxy prefilter
+        self.select_proxy = ({"block": int(select_proxy_block),
+                              "candidates": int(select_proxy_candidates)}
+                             if select_proxy_candidates else None)
         shapes = ({"emb_tables": 2 * emb_dim} if fused_tables else
                   {"emb_att": emb_dim, "emb_rep": emb_dim})
         for name, width in shapes.items():
@@ -74,9 +82,12 @@ class DARE(nn.Module):
         D = self.emb_dim
         L = seq_ids.shape[1]
         query = query_vec.to(dtype)
+        # every pass (the proxy's block means among them) reads the att
+        # half of the fused table, as the JAX package's att_lookup does
         idx, sel_ids, _ = dare_select_ids(
             self.emb_tables[:, :D] if self.fused_tables else self.emb_att, seq_ids, query,
             top_k=self.top_k, tau=self.recency_tau, pad_id=self.pad_id,
+            select_chunk=self.select_chunk, select_proxy=self.select_proxy,
         )
         K_logical = sel_ids.shape[1]
         if self.pad_topk:

@@ -1,8 +1,8 @@
-"""Ops of the port: dense top-k selection and the plain FM cross in
-PyTorch, the counter-hash dropout masks, and the hand-written CUDA
-kernels of the encoder layer (``fused_mha_qkv``, ``fused_block_tail``,
-``fused_mha``, ``fused_ffn`` and their backwards) and of the QNN-alpha
-head (``fm_cross_pallas`` and its backward) and of the table update
+"""Ops of the port: the DARE top-k selection (dense, streaming and the
+proxy prefilter) and the plain FM cross in PyTorch, the counter-hash
+dropout masks, and the hand-written CUDA kernels of the encoder layer
+(``fused_mha_qkv``, ``fused_block_tail``, ``fused_mha``, ``fused_ffn``
+and their backwards) and of the QNN-alpha head (``fm_cross_pallas`` and its backward) and of the table update
 (``sweep_rows_add``) with their plain versions; and the kernels of the
 two card probes (the scatter probe's table sweeps, ``dense_sweep`` and
 ``sparse_sweep``; the dropout check's mask dumps,

@@ -14,17 +14,20 @@ in two formats:
                          which serving takes over params.pt
       calibrator.json    Calibrator.to_json() (optional)
 
-    runs/<exp>/ckpt_folds_<f>/      the JAX package's legacy form
+    runs/<exp>/ckpt_folds_<f>/      the JAX package's forms
       meta.json
-      params.msgpack     flax-serialized variables ({"params": ...})
-      ema.msgpack        EMA weights (optional)
+      params.msgpack     flax-serialized variables ({"params": ...}), or
+      params/            the same row-sharded (a pod-trained fold:
+                         index.json, dense.msgpack, <key>.r<r0>.npy)
+      ema.msgpack        EMA weights (optional), or ema/ row-sharded
       calibrator.pkl     pickled tossctr_tpu Calibrator (optional)
 
-The msgpack files are read by ``flax_msgpack`` and converted by
+The msgpack files are read by ``flax_msgpack``, the row-sharded
+directories by ``sharded_ckpt``, and both converted by
 ``convert.flax_to_state_dict``; the pickle is read by an unpickler that
-maps the JAX package's calibrator classes onto this package's, so
-neither flax nor ``tossctr_tpu`` is imported.  The row-sharded
-``params/`` directory form waits for the multi-device slice.
+maps the JAX package's calibrator classes, and sklearn's
+``IsotonicRegression`` inside an isotonic one, onto this package's, so
+neither flax, sklearn nor ``tossctr_tpu`` is imported.
 
 ``save_train_state`` / ``load_train_state``: the step-resume state of
 one fold (``runs/<exp>/fold_<f>_state.pt``) in the port's own
@@ -43,11 +46,19 @@ import os
 import pickle
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+try:
+    from numpy._core import multiarray as np_multiarray
+except ImportError:  # NumPy 1.x
+    from numpy.core import multiarray as np_multiarray
 
 from ..convert import flax_to_state_dict
 from ..eval.calibration import Calibrator, TemperatureScaler
+from ..eval.isotonic import IsotonicRegression
 from . import flax_msgpack
+from .sharded_ckpt import is_sharded_checkpoint, load_sharded_pytree
 
 
 def fold_ckpt_dir(exp_dir: str, fold: int) -> str:
@@ -147,24 +158,26 @@ def load_train_state(path: str, state) -> Dict[str, Any]:
 
 
 class _CalibratorUnpickler(pickle.Unpickler):
-    """Resolves the JAX package's calibrator classes to this package's;
-    refuses every other class."""
+    """Resolves the JAX package's calibrator classes and sklearn's
+    ``IsotonicRegression`` to this package's, and NumPy's array and scalar
+    reconstructors to themselves; refuses every other class."""
 
     _CLASSES = {
         ("tossctr_tpu.eval.calibration", "Calibrator"): Calibrator,
         ("tossctr_tpu.eval.calibration", "TemperatureScaler"): TemperatureScaler,
+        ("sklearn.isotonic", "IsotonicRegression"): IsotonicRegression,
+        ("numpy", "ndarray"): np.ndarray,
+        ("numpy", "dtype"): np.dtype,
+        **{(m, n): getattr(np_multiarray, n)
+           for m in ("numpy.core.multiarray", "numpy._core.multiarray")
+           for n in ("_reconstruct", "scalar")},
     }
 
     def find_class(self, module: str, name: str):
         cls = self._CLASSES.get((module, name))
-        if cls is not None:
-            return cls
-        if module.startswith("sklearn"):
-            raise NotImplementedError(
-                f"calibrator.pkl holds {module}.{name}: isotonic calibration is not ported "
-                "(ROADMAP queue 1 item 2)"
-            )
-        raise pickle.UnpicklingError(f"calibrator.pkl: class {module}.{name} is not allowed")
+        if cls is None:
+            raise pickle.UnpicklingError(f"calibrator.pkl: class {module}.{name} is not allowed")
+        return cls
 
 
 def load_legacy_calibrator(path: str) -> Calibrator:
@@ -172,9 +185,8 @@ def load_legacy_calibrator(path: str) -> Calibrator:
         cal = _CalibratorUnpickler(io.BytesIO(f.read())).load()
     if not isinstance(cal, Calibrator):
         raise TypeError(f"{path} does not hold a Calibrator")
-    if cal.iso is not None:
-        raise NotImplementedError(f"{path}: isotonic calibration is not ported (ROADMAP queue 1 "
-                                  "item 2)")
+    if cal.iso is not None and not isinstance(cal.iso, IsotonicRegression):
+        raise TypeError(f"{path}: the isotonic map is a {type(cal.iso).__name__}")
     return cal
 
 
@@ -182,10 +194,9 @@ def _load_legacy_weights(ckpt_dir: str, name: str) -> Optional[Dict[str, torch.T
     legacy = os.path.join(ckpt_dir, f"{name}.msgpack")
     if os.path.exists(legacy):
         return flax_to_state_dict(flax_msgpack.load(legacy))
-    if os.path.isdir(os.path.join(ckpt_dir, name)):
-        raise NotImplementedError(
-            f"{ckpt_dir}/{name}/: row-sharded checkpoints are not ported"
-        )
+    sharded = os.path.join(ckpt_dir, name)
+    if is_sharded_checkpoint(sharded):
+        return flax_to_state_dict(load_sharded_pytree(sharded))
     return None
 
 

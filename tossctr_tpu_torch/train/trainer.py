@@ -39,11 +39,12 @@ an eager PyTorch function on the card:
 The model's parameters are the state's parameters: the step updates
 them in place.  The fold loop around it: the stratified group K-fold
 split (``cv_split.py``), per-epoch validation on the EMA weights with
-host metrics, temperature calibration, best-epoch checkpoints, early
+host metrics or, with ``eval.device_metrics: true``, the AP/WLL in torch
+on the fold's device (``eval/metrics.py`` ``final_score_device``),
+temperature and isotonic calibration, best-epoch checkpoints, early
 stop, and step-granular resume.  Not ported (``_check_ported`` refuses
-them, naming their ROADMAP item): streaming and proxy selection,
-isotonic calibration, the device metrics, the device mesh and
-distributed runtime and ``debug_nans``.
+them, naming their ROADMAP item): the device mesh and distributed
+runtime and ``debug_nans``.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ from ..data.dataset import ShardCache, load_labels_groups_for_split
 from ..data.loader import BatchIterator, DevicePrefetcher
 from ..data.sampler import BalancedBatchSampler
 from ..eval.calibration import Calibrator
-from ..eval.metrics import final_score
+from ..eval.metrics import final_score, final_score_device
 from ..models.ctr_model import (
     SPARSE_EMB_OPTS,
     CTRModel,
@@ -136,17 +137,11 @@ def is_embedding_param(name: str) -> bool:
 
 def _check_ported(cfg) -> None:
     """Refuse a config that asks for what the port has not got yet, naming
-    each part's ROADMAP item.  ``eval.device_metrics: null`` (auto) takes
-    the host metrics, as the JAX package does on every backend but a
-    TPU."""
-    s, m, cal = cfg.sequence, cfg.mesh, cfg.calibration
+    each part's ROADMAP item.  Selection needs nothing here: the JAX
+    package's ``replicate_fn`` pins the proxy table replicated under
+    sharding, and one device has no counterpart of it."""
+    m = cfg.mesh
     unported = {
-        "sequence.select_chunk / select_proxy (streaming / proxy selection, ROADMAP queue 1 "
-        "item 2)": bool(s.select_chunk or s.select_proxy),
-        "calibration.method other than temperature (isotonic calibration, ROADMAP queue 1 "
-        "item 2)": bool(cal.enabled) and cal.method != "temperature",
-        "eval.device_metrics: true (the device AP/WLL, ROADMAP queue 1 item 6)":
-            bool(cfg.eval.device_metrics),
         "mesh.data > 1 or mesh.model > 1 (more than one device, ROADMAP queue 1 item 8)":
             m.data > 1 or m.model > 1,
         "extra.debug_nans (ROADMAP queue 1 item 8)": bool(cfg.extra.get("debug_nans", False)),
@@ -405,10 +400,11 @@ def make_eval_step(model: CTRModel):
     return eval_step
 
 
-def run_validation(eval_step, params, loader, device) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def run_validation(eval_step, params, loader, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                                                torch.Tensor]:
     """-> (y_true, p_raw, z_raw) over ``loader``, padded rows dropped by
-    the ``valid`` mask.  The outputs stay on the device and move to the
-    host once, at the end."""
+    the ``valid`` mask, as tensors on ``device``: the caller moves them to
+    the host once, if at all."""
     zs, ps, ys, valids = [], [], [], []
     for batch in DevicePrefetcher(loader, device):
         z, p = eval_step(params, batch)
@@ -417,9 +413,10 @@ def run_validation(eval_step, params, loader, device) -> Tuple[np.ndarray, np.nd
         ys.append(batch["y"])
         valids.append(batch["valid"])
     if not zs:
-        return np.zeros(0), np.zeros(0), np.zeros(0)
-    z, p, y, valid = (torch.cat(t).cpu().numpy() for t in (zs, ps, ys, valids))
-    keep = valid.astype(bool)
+        empty = torch.zeros(0, device=device)
+        return empty, empty, empty
+    z, p, y, valid = (torch.cat(t) for t in (zs, ps, ys, valids))
+    keep = valid.bool()
     return y[keep], p[keep], z[keep]
 
 
@@ -510,8 +507,15 @@ def train_one_fold(cfg, fold: int, idx_tr: np.ndarray, idx_va: np.ndarray, manif
 
         params = state.params()
         eval_p = ema_params(state.ema, params) if use_ema_eval else params
-        y_true, p_raw, z_raw = run_validation(eval_step, eval_p, va_loader, dev)
-        ap, wll, score = final_score(y_true, p_raw, formula=cfg.eval.score_formula)
+        y_val, p_val, z_val = run_validation(eval_step, eval_p, va_loader, dev)
+        y_true, p_raw, z_raw = (t.cpu().numpy() for t in (y_val, p_val, z_val))
+        # true: the AP/WLL on the fold's device, from the scores there; null
+        # (auto): the host's, as the JAX package resolves it off a TPU
+        if cfg.eval.device_metrics:
+            ap, wll, score = final_score_device(y_val, p_val, formula=cfg.eval.score_formula,
+                                                device=dev)
+        else:
+            ap, wll, score = final_score(y_true, p_raw, formula=cfg.eval.score_formula)
 
         cal = None
         ap_cal = wll_cal = score_cal = None
