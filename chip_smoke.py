@@ -162,6 +162,16 @@
    ``launches_select`` the select phase's proxy steps'), then ``{"ok":
    true, "device": ...}``.
 
+Every profiled train step (``profile_step``: the training, LayerNorm,
+K = 148 and streaming sweep phases, the reference tables' sweep and
+``adamw`` steps) is also broken down by class: its exported trace
+(shapes recorded) folded by ``tossctr_tpu_torch/utils/trace.py`` into the
+JAX package's device-time classes, printed as ``[breakdown]`` lines in
+ms per step with the top ten kernels; the phase fails if the classes do
+not sum to the kept events, if that total is more than BREAKDOWN_BAND
+from the profiler's device time, if the trace lacks a kernel the step
+launched, or if one of the port's kernels lands outside its class.
+
 Any failure exits non-zero before the last line.  Scratch files live in a
 temporary directory under ``build/`` that is removed at exit.
 """
@@ -174,6 +184,7 @@ import csv
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1409,34 +1420,162 @@ def training_phase(cfg, cache, dev):
     return launches
 
 
-def profile_step(state, step, batch, tag):
-    """One train step under torch.profiler: device time by kernel, the
-    device's busy share of the step's wall time, and the port's kernels'
-    share of the device time."""
+# the class utils/trace.py must give each of the port's kernels, by the
+# start of its name in the trace (the __global__ functions of csrc/)
+PORT_KERNEL_CLASSES = {
+    "mha_qkv_fwd": "attention", "mha_qkv_bwd": "attention", "mha_fwd": "attention",
+    "mha_bwd": "attention", "block_tail_fwd": "custom_call", "block_tail_bwd": "custom_call",
+    "tail_fwd_mma": "custom_call", "tail_bwd_mma": "custom_call", "ffn_fwd": "custom_call",
+    "ffn_bwd": "custom_call", "fm_fwd": "custom_call", "fm_bwd": "custom_call",
+    "fm_dv": "custom_call", "reduce_partials": "custom_call", "attn_dump": "custom_call",
+    "ffn_dump": "custom_call", "sweep_pieces": "table_update", "sweep_merge": "table_update",
+    "sweep_kernel": "table_update",
+}
+# the kernels a wrapper's launch puts in the trace (PORT_KERNEL_CLASSES
+# keys; either form where the wrapper has a CUDA-core and a tensor-core one)
+WRAPPER_KERNELS = {
+    "fused_mha_qkv": ("mha_qkv_fwd",), "fused_mha_qkv_bwd": ("mha_qkv_bwd",),
+    "fused_block_tail": ("block_tail_fwd", "tail_fwd_mma"),
+    "fused_block_tail_bwd": ("block_tail_bwd", "tail_bwd_mma"), "fused_mha": ("mha_fwd",),
+    "fused_mha_bwd": ("mha_bwd",), "fused_ffn": ("ffn_fwd",), "fused_ffn_bwd": ("ffn_bwd",),
+    "fm_cross_pallas": ("fm_fwd",), "fm_cross_pallas_bwd": ("fm_bwd",),
+    "sweep_rows_add": ("sweep_pieces",), "dense_sweep": ("sweep_kernel",),
+    "sparse_sweep": ("sweep_kernel",), "dump_attention_keep": ("attn_dump",),
+    "dump_ffn_keep": ("ffn_dump",),
+}
+BREAKDOWN_BAND = 0.02  # the kept events' total against the profiler's device time
+
+
+def port_kernel_of(name):
+    """The key of PORT_KERNEL_CLASSES that starts a word of a kernel's
+    name, or None."""
+    for k in PORT_KERNEL_CLASSES:
+        if re.search(r"\b" + k, name):
+            return k
+    return None
+
+
+def step_breakdown(prof, device_ms, tag, launched):
+    """The profiled step's trace folded into ``utils/trace.py``'s classes:
+    prints ms per class (one step, so ms per step) and the top 10 kernels,
+    and holds that the classes sum to the kept events' total, that this
+    total is within BREAKDOWN_BAND of the profiler's device time
+    (``device_ms``), that each wrapper's launches in the window
+    (``launched``: {wrapper: launches}) put as many of its kernels in the
+    trace (WRAPPER_KERNELS), and that each of the port's kernels in the
+    trace lands in its class of PORT_KERNEL_CLASSES."""
+    from tossctr_tpu_torch.utils import trace
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="trace_", dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "step.json")
+        prof.export_chrome_trace(path)
+        events = trace.load_device_events(path)
+    breakdown = trace.op_time_breakdown(events)
+    top = trace.top_ops_detailed(events, n=10)
+    kept_ms = sum(float(e.get("dur", 0.0)) for e in events) / 1e3
+    span_ms = (max((float(e["ts"]) + float(e.get("dur", 0.0)) for e in events), default=0.0)
+               - min((float(e["ts"]) for e in events), default=0.0)) / 1e3
+    log(f"[breakdown] {tag} step: {len(events)} device events, {kept_ms:.3f} ms over a span "
+        f"of {span_ms:.3f} ms (the profiler's device time {device_ms:.3f} ms); ms per step by "
+        f"class: "
+        + json.dumps({k: round(v, 4) for k, v in breakdown.items()})
+        + f" (export and parse {time.perf_counter() - t0:.1f} s)")
+    for d in top:
+        log(f"[breakdown] {tag}   {d['ms']:9.4f} ms {d['calls']:5d}x {d['class']:<18} "
+            f"{d['name'][:90]}  <- {d['op'][:40]} {d['input_dims'][:80]}")
+    if abs(sum(breakdown.values()) - kept_ms) > 1e-6 * max(kept_ms, 1.0):
+        raise AssertionError(f"{tag}: the classes sum to {sum(breakdown.values())} ms, the "
+                             f"kept events to {kept_ms} ms")
+    if abs(kept_ms - device_ms) > BREAKDOWN_BAND * device_ms:
+        raise AssertionError(f"{tag}: the trace's device events total {kept_ms:.3f} ms, "
+                             f"the profiler's device time {device_ms:.3f} ms: more than "
+                             f"{BREAKDOWN_BAND:.0%} apart")
+    seen, counts, wrong = {}, {}, []
+    for e in events:
+        k = port_kernel_of(str(e.get("name", "")))
+        if k is None:
+            continue
+        got = trace.classify_op(e["name"], e["op"], e["input_dims"], e["cat"])
+        seen[k] = got
+        counts[k] = counts.get(k, 0) + 1
+        if got != PORT_KERNEL_CLASSES[k]:
+            wrong.append((e["name"][:80], got, PORT_KERNEL_CLASSES[k]))
+    in_trace = {w: sum(counts.get(k, 0) for k in WRAPPER_KERNELS[w]) for w in launched}
+    log(f"[breakdown] {tag}: the port's kernels in the trace and their classes: {seen}; the "
+        f"wrappers' launches in the window {launched}, their kernels' events {in_trace}")
+    missing = {w: (n, in_trace[w]) for w, n in launched.items() if in_trace[w] < n}
+    if not launched or missing:
+        raise AssertionError(f"{tag}: the step's trace lacks launched kernels "
+                             f"(wrapper: launches, events): {missing or launched}")
+    if wrong:
+        raise AssertionError(f"{tag}: port kernels in the wrong class (name, got, want): {wrong}")
+    return breakdown
+
+
+def profiled_step(state, step, batch):
+    """One train step under torch.profiler (shapes recorded) -> (state,
+    the profile, the step's wall seconds, {wrapper: launches in the
+    window}, the profile's kernel events of each launching wrapper)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from tossctr_tpu_torch.ops import launch_counts
+
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         state, loss = step(state, batch)
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+    launched = {k: n - before[k] for k, n in launch_counts().items() if n > before[k]}
+    counts = {}
+    for e in prof.key_averages():
+        k = port_kernel_of(e.key) if e.device_type == DeviceType.CUDA else None
+        if k is not None:
+            counts[k] = counts.get(k, 0) + e.count
+    recorded = {w: sum(counts.get(k, 0) for k in WRAPPER_KERNELS[w]) for w in launched}
+    return state, prof, wall, launched, recorded
+
+
+def profile_step(state, step, batch, tag):
+    """One train step under torch.profiler (``profiled_step``): device time
+    by kernel, the device's busy share of the step's wall time, the
+    port's kernels' share of the device time, and the step's breakdown by
+    class (``step_breakdown``).  The device time leaves out the
+    ``record_function`` ranges' device spans, which cover kernels already
+    counted (the sum with them is printed beside).  A profile whose record
+    lacks kernels the window launched is a fault of the profiler's record
+    (seen once on the card: every kernel's time about 1/23 of its own and
+    the forward's kernels gone, the host's ops all there): the next step
+    is then profiled in its place, once; ``step_breakdown`` fails if that
+    record lacks them too."""
+    from torch.autograd import DeviceType
+
+    state, prof, prof_wall, launched, recorded = profiled_step(state, step, batch)
+    if any(recorded[w] < n for w, n in launched.items()):
+        log(f"[profile] {tag} step: the profiler's record lacks launched kernels (wrapper: "
+            f"launches {launched}, kernel events {recorded}); profiling the next step instead")
+        state, prof, prof_wall, launched, recorded = profiled_step(state, step, batch)
     events = prof.key_averages()
-    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_all = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_events = [e for e in dev_all if not getattr(e, "is_user_annotation", False)]
     device_s = sum(e.self_device_time_total for e in dev_events) / 1e6
-    ours = ("mha_qkv_fwd", "block_tail_fwd", "mha_qkv_bwd", "block_tail_bwd", "ffn_fwd",
-            "ffn_bwd", "mha_fwd", "mha_bwd", "fm_fwd", "fm_bwd", "fm_dv", "reduce_partials",
-            "sweep_pieces", "sweep_merge")
+    ranges_s = sum(e.self_device_time_total for e in dev_all) / 1e6 - device_s
     ours_s = sum(e.self_device_time_total for e in dev_events
-                 if any(k in e.key for k in ours)) / 1e6
+                 if port_kernel_of(e.key) is not None) / 1e6
     table_txt = events.table(sort_by="cuda_time_total", row_limit=30, max_name_column_width=60)
     log(f"[profile] one {tag} step, by device time:")
     for line in table_txt.splitlines():
         log("  " + line)
     log(f"[profile] {tag} step: device busy {1e3 * device_s:.3f} ms of {1e3 * prof_wall:.3f} ms "
         f"wall = {device_s / prof_wall:.1%} (under the profiler); the port's kernels "
-        f"{1e3 * ours_s:.3f} ms = {ours_s / max(device_s, 1e-12):.1%} of device time")
+        f"{1e3 * ours_s:.3f} ms = {ours_s / max(device_s, 1e-12):.1%} of device time; the "
+        f"record_function ranges' device spans {1e3 * ranges_s:.3f} ms more (not counted)")
+    step_breakdown(prof, 1e3 * device_s, tag, launched)
     return state
 
 

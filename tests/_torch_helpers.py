@@ -159,6 +159,14 @@ def compiled(jitted, *args):
     return jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
 
 
+def run_once(fn, *args):
+    """``jax.jit(fn)(*args)`` compiled with ``FAST_COMPILE`` (``compiled``):
+    for a program the test runs once."""
+    import jax
+
+    return compiled(jax.jit(fn), *args)(*args)
+
+
 def jax_model_and_variables(d: dict, batch: dict, seed: int = 0):
     """The flax CTRModel the JAX package builds for ``d`` (fused-block
     kernels on) and variables that fit it: the port's seeded parameters
@@ -221,16 +229,16 @@ def flax_variables_from_port(port, jax_model, batch) -> dict:
 
 def jitted_vjp(fn, args, cotangent):
     """-> (fn(*args), the gradients of ``cotangent`` through it), both from
-    one jitted program: run eagerly, ``jax.vjp`` of an interpret-mode
-    Pallas kernel compiles each of its primitives apart, which costs
-    several times the compile of the whole."""
+    one jitted program (``run_once``): run eagerly, ``jax.vjp`` of an
+    interpret-mode Pallas kernel compiles each of its primitives apart,
+    which costs several times the compile of the whole."""
     import jax
 
     def both(cot, *a):
         out, vjp = jax.vjp(fn, *a)
         return out, vjp(cot)
 
-    return jax.jit(both)(cotangent, *args)
+    return run_once(both, cotangent, *args)
 
 
 def port_model(d: dict, variables, device: str = "cpu"):

@@ -37,6 +37,7 @@ from _torch_helpers import (
     jax_model_and_variables,
     jitted_vjp,
     make_batch,
+    run_once,
     port_model,
     tiny_cfg_dict,
     torch_batch,
@@ -134,8 +135,8 @@ def test_attention_plain_versions_match_pallas_at_large_k():
         plain = copy.deepcopy(d)
         plain["model"].update(use_pallas_attention=False, use_pallas_ffn=False)
         jmodel, variables = jax_model_and_variables(plain, batch)
-        jz, jp, _ = jax.jit(lambda v, b: jmodel.apply(v, b, deterministic=True))(
-            variables, {k: jnp.asarray(v) for k, v in batch.items()})
+        jz, jp, _ = run_once(lambda v, b: jmodel.apply(v, b, deterministic=True),
+                             variables, {k: jnp.asarray(v) for k, v in batch.items()})
         with torch.no_grad():
             z, p, _ = port_model(d, variables)(torch_batch(batch))
         np.testing.assert_allclose(z.numpy(), np.asarray(jz), rtol=0, atol=1e-4)

@@ -172,7 +172,7 @@ def test_fm_cross_matches_pallas():
             z, _, _ = model.apply({"params": params}, batch, deterministic=True)
             return jnp.sum(z * w), z
 
-        (_, jz), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables["params"])
+        (_, jz), jg = H.run_once(jax.value_and_grad(jloss, has_aux=True), variables["params"])
         z, _, _ = port(H.torch_batch(batch))
         (z * torch.from_numpy(w)).sum().backward()
         _close("logits", "f32", z.detach().numpy(), np.asarray(jz))

@@ -32,7 +32,7 @@ the output and the gradients of x, the bias and every parameter within
 import numpy as np
 import pytest
 
-from _torch_helpers import Checks, bf16_band, jitted_vjp, torch_threads
+from _torch_helpers import Checks, bf16_band, jitted_vjp, run_once, torch_threads
 
 P_DROP = 0.3
 SEED = 13579
@@ -135,15 +135,15 @@ def test_fused_mha_matches_pallas():
         x, _, _, bias, g = mha_inputs(9, K, masked_cols=2)
         jm = JaxMHA(D, H, 0.0, use_pallas=use_pallas, fuse_qkv=fuse_qkv)
         jbias = jnp.asarray(bias)[None, None]
-        variables = jax.jit(lambda k_, x_, b_: jm.init(k_, x_, attn_bias=b_))(
-            jax.random.PRNGKey(0), jnp.asarray(x), jbias)
+        variables = run_once(lambda k_, x_, b_: jm.init(k_, x_, attn_bias=b_),
+                             jax.random.PRNGKey(0), jnp.asarray(x), jbias)
 
         def jloss(params, x_, bias_):
             out = jm.apply({"params": params}, x_, attn_bias=bias_[None, None])
             return jnp.sum(out * g), out
 
-        (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
-            variables["params"], jnp.asarray(x), jnp.asarray(bias))
+        (_, jout), jgrads = run_once(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True),
+                                     variables["params"], jnp.asarray(x), jnp.asarray(bias))
         tm = MultiHeadSelfAttention(D, H, 0.0, use_pallas=use_pallas, fuse_qkv=fuse_qkv)
         tm.load_state_dict(flax_to_state_dict(jax.device_get(variables)), strict=True)
         tx = torch.from_numpy(x).requires_grad_()

@@ -2,13 +2,15 @@
 fresh interpreter: importing every module of ``tossctr_tpu_torch`` (the
 CLIs' ``__main__`` modules, the fold loop and the FM-cross ops among
 them) pulls in neither JAX, flax, msgpack, PyYAML, sklearn, pyarrow,
-polars nor the JAX package (the card's machine has none of them); no source of
+pandas, polars nor the JAX package (the card's machine has none of them);
+no source of
 the port (or ``chip_smoke.py``) imports them, and none of its sources (the
 native gather's C++ among them) names a path into the JAX package's
 ``native/``, whose library the port never loads; no shared library lies
 in the package's tree (the native gather builds into ``build/native/``);
 and an entry point called without ``device`` on a machine without CUDA
-raises instead of running on the CPU.  One test item (see
+raises instead of running on the CPU (the training CLI's
+``--build-cache`` before its ETL starts).  One test item (see
 ``_torch_helpers``)."""
 
 import ast
@@ -23,7 +25,8 @@ from _torch_helpers import Checks
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "tossctr_tpu_torch"
-FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "sklearn", "pyarrow", "polars", "tossctr_tpu")
+FORBIDDEN = ("jax", "flax", "msgpack", "yaml", "sklearn", "pyarrow", "pandas", "polars",
+             "tossctr_tpu")
 
 
 def _run(code: str) -> subprocess.CompletedProcess:
@@ -51,21 +54,59 @@ def _imported_names(path: pathlib.Path):
 def test_port_import_and_device_hygiene(tmp_path):
     import torch
 
+    mods = _modules()
+    cfg_json = tmp_path / "cfg.json"
+    cfg_json.write_text(json.dumps({"logging": {"log_dir": str(tmp_path)},
+                                    "data": {"cache_dir": str(tmp_path / "cache"),
+                                             "train_path": str(tmp_path / "no.parquet")}}))
+    # one fresh interpreter: every module imported first, then (on a machine
+    # without CUDA) each entry point called without a device; the training
+    # CLI's ETL is replaced by a recorder, which must not be called
+    r = _run(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        print("BAD", bad)
+        import torch
+        if not torch.cuda.is_available():
+            from tossctr_tpu_torch.config import Config
+            from tossctr_tpu_torch.data import etl
+            from tossctr_tpu_torch.infer import infer_main
+            from tossctr_tpu_torch.models import build_model
+            from tossctr_tpu_torch.tools.run_calibration import main as run_calibration
+            from tossctr_tpu_torch.train.__main__ import main as train_cli
+            from tossctr_tpu_torch.train.trainer import train_main
+            etl_calls = []
+            etl.build_train_and_test = lambda cfg: etl_calls.append(cfg)
+            cfg = Config.from_dict({{"logging": {{"log_dir": {str(tmp_path)!r}}}}})
+            path = {str(cfg_json)!r}
+            dims = {{"X_num": 2, "X_mask": 2, "X_cat": 0, "seq_len": 8}}
+            for call in (lambda: infer_main(cfg), lambda: build_model(cfg, dims),
+                         lambda: train_main(cfg), lambda: run_calibration(["--cfg", path]),
+                         lambda: train_cli(["--cfg", path, "--build-cache"])):
+                try:
+                    call()
+                except RuntimeError as e:
+                    print("RAISED", "CUDA" in str(e))
+                else:
+                    print("RAN")
+            # the CLI raised before its ETL started
+            print("ETL CALLS", len(etl_calls))
+    """)
+    out = r.stdout.split("\n")
+
     def importing_every_module_loads_none_of_them():
-        mods = _modules()
         for m in ("ops.fused_attention", "ops.fused_ffn", "ops.fm_cross", "train.trainer",
                   "train.cv_split", "train.sharded_ckpt", "eval.isotonic", "native.build",
-                  "tools.run_calibration", "train.__main__", "infer.__main__"):
+                  "tools.run_calibration", "train.__main__", "infer.__main__", "data.etl",
+                  "data.synth", "features.covis", "utils.hashing", "utils.trace",
+                  "tools.build_covis_features", "tools.blend_submissions",
+                  "tools.check_hash_collisions", "tools.guess_numeric_types",
+                  "tools.make_synth_data"):
             assert f"tossctr_tpu_torch.{m}" in mods, m
-        r = _run(f"""
-            import importlib, sys
-            for m in {mods!r}:
-                importlib.import_module(m)
-            bad = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
-            print("BAD", bad)
-        """)
         assert r.returncode == 0, r.stderr
-        assert "BAD []" in r.stdout, r.stdout
+        assert out[0] == "BAD []", r.stdout
 
     def no_source_imports_the_jax_package():
         for path in list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
@@ -91,28 +132,9 @@ def test_port_import_and_device_hygiene(tmp_path):
         assert not list(PKG.rglob("*.so")), list(PKG.rglob("*.so"))
 
     def entry_points_without_device_raise():
-        cfg_json = tmp_path / "cfg.json"
-        cfg_json.write_text(json.dumps({"logging": {"log_dir": str(tmp_path)}}))
-        r = _run(f"""
-            from tossctr_tpu_torch.config import Config
-            from tossctr_tpu_torch.infer import infer_main
-            from tossctr_tpu_torch.models import build_model
-            from tossctr_tpu_torch.tools.run_calibration import main as run_calibration
-            from tossctr_tpu_torch.train.trainer import train_main
-            cfg = Config.from_dict({{"logging": {{"log_dir": {str(tmp_path)!r}}}}})
-            path = {str(cfg_json)!r}
-            dims = {{"X_num": 2, "X_mask": 2, "X_cat": 0, "seq_len": 8}}
-            for call in (lambda: infer_main(cfg), lambda: build_model(cfg, dims),
-                         lambda: train_main(cfg), lambda: run_calibration(["--cfg", path])):
-                try:
-                    call()
-                except RuntimeError as e:
-                    print("RAISED", "CUDA" in str(e))
-                else:
-                    print("RAN")
-        """)
         assert r.returncode == 0, r.stderr
-        assert r.stdout.split("\n")[:4] == ["RAISED True"] * 4, r.stdout
+        assert out[1:7] == ["RAISED True"] * 5 + ["ETL CALLS 0"], r.stdout
+        assert not (tmp_path / "cache").exists()
 
     checks = Checks()
     checks.run("importing every module", importing_every_module_loads_none_of_them)

@@ -19,7 +19,8 @@ One test item (see ``_torch_helpers``).
 import numpy as np
 import pytest
 
-from _torch_helpers import LOWP_TAIL, Checks, attn_inputs, bf16_band, tail_inputs, torch_threads
+from _torch_helpers import LOWP_TAIL, Checks, attn_inputs, bf16_band, run_once, tail_inputs
+from _torch_helpers import torch_threads
 
 
 def test_kernel_modules_match_pallas():
@@ -39,8 +40,8 @@ def test_kernel_modules_match_pallas():
     def jax_attn(x, w, b, bias, H, dtype):
         cast = (lambda a: jnp.asarray(a, jnp.bfloat16)) if dtype == "bf16" else jnp.asarray
         # jitted: run eagerly, an interpret-mode kernel compiles each primitive apart
-        out = jax.jit(lambda *a: jax_fused_mha_qkv(*a, H, 0.0, 64, True))(
-            cast(x), cast(w), jnp.asarray(b), cast(bias), jnp.zeros((1,), jnp.int32))
+        out = run_once(lambda *a: jax_fused_mha_qkv(*a, H, 0.0, 64, True),
+                       cast(x), cast(w), jnp.asarray(b), cast(bias), jnp.zeros((1,), jnp.int32))
         return np.asarray(out).astype(np.float32)
 
     def torch_attn(x, w, b, bias, H, dtype, fn=fused_mha_qkv_reference):
@@ -49,7 +50,8 @@ def test_kernel_modules_match_pallas():
         return fn(t(x), t(w), torch.from_numpy(b), t(bias), H).float().numpy()
 
     def jax_tail(args, dtype):
-        out = jax.jit(lambda *a: jax_fused_block_tail(*a, 0.0, 16, True))(
+        out = run_once(
+            lambda *a: jax_fused_block_tail(*a, 0.0, 16, True),
             *[jnp.asarray(a, jnp.bfloat16) if (dtype == "bf16" and i in LOWP_TAIL)
               else jnp.asarray(a) for i, a in enumerate(args)],
             jnp.zeros((1,), jnp.int32),

@@ -37,6 +37,7 @@ import pytest
 
 from _torch_helpers import (
     Checks,
+    compiled,
     dims_for,
     jax_model_and_variables,
     make_batch,
@@ -178,7 +179,8 @@ def test_streaming_updates_match_jax(tmp_path):
             model(torch_batch(batch), taps=taps)
         selected = set(taps["sel_ids"].reshape(-1).tolist())
 
-        jstate, jloss = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+        jb = jax.tree_util.tree_map(jnp.asarray, batch)
+        jstate, jloss = compiled(jstep, jstate, jb)(jstate, jb)
         reset_launch_counts()
         state, loss = step(state, torch_batch(batch))
         assert not any(launch_counts().values())  # CPU: the plain versions

@@ -60,7 +60,11 @@ def test_sweep_plain_version_matches_pallas():
             ts = [t.astype(ml_dtypes.bfloat16).astype(np.float32) for t in ts]
         jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32,
                                                                             torch.float32)
-        return ts, [jnp.asarray(t, jdt) for t in ts], [torch.from_numpy(t).to(tdt) for t in ts]
+        # the port's tables are copies: on the CPU ``jnp.asarray`` may alias
+        # the numpy array, and the port updates its tables in place while
+        # JAX's asynchronously dispatched update may still be reading them
+        return ts, [jnp.asarray(t, jdt) for t in ts], [torch.from_numpy(t.copy()).to(tdt)
+                                                       for t in ts]
 
     def hold(name, dtype, got, want, before):
         got, want = got.float().numpy(), np.asarray(want, np.float32)

@@ -96,8 +96,14 @@ def test_train_step_matches_jax():
             programs[key] = compiled(jstep, jstate, batch)
         return programs[key](jstate, batch)
 
-    @jax.jit
     def jax_loss_and_grads(params, batch):
+        """``loss_and_grads`` compiled once a batch layout (``compiled``)."""
+        key = ("grads",) + tuple(sorted(batch))
+        if key not in programs:
+            programs[key] = compiled(jax.jit(loss_and_grads), params, batch)
+        return programs[key](params, batch)
+
+    def loss_and_grads(params, batch):
         rest, tables = jtrainer.extract_tables(params)
         B, K, D = batch["seq"].shape[0], 8, d["model"]["emb_dim"]
         perts0 = {"dare": {"table_rows": jnp.zeros((B, K, 2 * D), jnp.float32)}}
@@ -184,7 +190,8 @@ def test_train_step_matches_jax():
         params = {n: p.to(model.dare.emb_tables.device)
                   for n, p in flax_to_state_dict(jax.device_get(jstate.params)).items()}
         z, p = trainer.make_eval_step(model)(params, torch_batch(batch))
-        jz, jp = jeval(jstate.params, jax.tree_util.tree_map(jnp.asarray, batch))
+        jb = jax.tree_util.tree_map(jnp.asarray, batch)
+        jz, jp = compiled(jeval, jstate.params, jb)(jstate.params, jb)
         rel_close("eval logits", z.numpy(), np.asarray(jz), 1e-4)
         rel_close("eval probabilities", p.numpy(), np.asarray(jp), 1e-4)
 
